@@ -8,9 +8,12 @@ Phases, each printing one line with the card's name and power limit:
 1. device   -- require a CUDA device; toolchain (torch, CUDA, nvcc);
 2. build    -- build the hand-written kernels from csrc/ (seconds);
 3. K1       -- Viterbi kernel vs its plain version for every mode's frame
-               length, 64 noisy frames each: bit-exact; both times;
-4. K2       -- the tracker wrapper (tracker_cuda.tracker_block) vs the
-               plain version: 512 noise channels with the gate off, in a
+               length, 64 noisy frames each, through both entries (one
+               mode per launch, and all eight modes in the one launch the
+               main path makes per event block): bit-exact; both times;
+4. K2       -- the kernel's inline cosine/sine against cosf/sinf over every
+               float it takes (0 mismatches); the tracker wrapper
+               (tracker_cuda.tracker_block) vs the plain version: 512 noise channels with the gate off, in a
                block of 1800 symbols (the CLI's default) and of 5376 (the
                scale run's), state and symbols within 2e-5, events and
                counters exact; 1800-symbol blocks carrying real frames of
@@ -24,9 +27,16 @@ Phases, each printing one line with the card's name and power limit:
                (cli.build_app, HfdlApp.run_file); the ledger must be exact
                (16/16, no junk, no other, no duplicates).  Kernel launch
                counters are reset just before and read just after the
-               first pass.  A second pass (fresh app) gives the warm wall
+               first pass: K2 twice (one block of capture, one of flush
+               padding), K1 once (one event block).  A second pass (fresh app) gives the warm wall
                time, a third runs under torch.profiler and gives the
                device's busy share and its time by kernel kind.
+
+Each kernel's line carries bound_ms, the least time the card could take
+for the same work: the larger of the bytes the function must move over the
+memory rate and its operations over the peak rate, both computed here from
+the shapes that were run.  Neither kernel can reach it (both are chains of
+dependent steps), so the chain's length is printed beside it.
 
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}.  Any failed phase raises (exit code != 0).
@@ -54,6 +64,52 @@ WORK = ROOT / 'build' / 'smoke'
 # resampler's step at 2.16 Msps) nearest bench.py's 16200
 DEMOD_BLOCK = 16128
 STEPS = DEMOD_BLOCK // C.SPS          # tracker symbols per block (5376)
+
+
+# NVIDIA H100 SXM data sheet: device memory rate, and the float32 rate
+# outside the tensor cores (taken for the integer add-compare-select too)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per step, counted from the kernels' sources: K1 does, for each
+# of the 32 butterflies of a bit, 5 for the branch metric, 4 adds, 2
+# compares and 2 selects; K2 does about 400 float operations per channel
+# and symbol outside a frame's training (interpolations 90, rotations 12,
+# equalizer 120, two cosine/sine pairs 60, arctangent and the loops' updates
+# the rest)
+K1_OPS_PER_BIT = 32 * 13
+K2_OPS_PER_SYMBOL = 400
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """Roofline bound of a call that must move n_bytes and do n_ops."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by='bytes' if t_b >= t_o else 'operations',
+                bound_bytes=n_bytes, bound_ops=n_ops)
+
+
+def k1_bound(softs, outs) -> dict:
+    """Chips read once, bits written once; 416 operations per decoded bit.
+    chain_steps: the dependent steps of the longest frame (its bits
+    forward, then a lane's share of the traceback with its merge run)."""
+    n_bytes = sum(a.numel() * a.element_size() for a in (*softs, *outs))
+    longest = max(o.shape[1] for o in outs)
+    return dict(bound(n_bytes, K1_OPS_PER_BIT * sum(o.numel() for o in outs)),
+                chain_steps=longest + -(-(longest - 6) // 32) + 96)
+
+
+def k2_bound(nch: int, t_len: int, n_sym: int) -> dict:
+    """What one tracker call must move, in 4-byte words: x (nch, t_len)
+    complex64 in, one level sample per channel and symbol in (the function
+    needs no other of the (nch, t_len) level), sym_re/sym_im/packed
+    (n_sym, c_pad) out, the state planes (8 + 19 + 60 + 4 rows of c_pad)
+    in and out, the shifts (c_pad) in, the event table (44) and counters
+    (4) out.  chain_steps: the symbols of a channel, each depending on the
+    one before."""
+    c_pad = -(-nch // 128) * 128
+    words = nch * (2 * t_len + n_sym) + c_pad * (3 * n_sym + 2 * 91 + 1 + 48)
+    return dict(bound(4 * words, K2_OPS_PER_SYMBOL * nch * n_sym),
+                chain_steps=n_sym)
 
 
 def card_line() -> str:
@@ -115,7 +171,8 @@ def phase_build(card: str) -> None:
 def phase_k1(card: str, dev: torch.device) -> dict:
     from dumphfdl_tpu_torch.ops import fec, fec_cuda
     rng = np.random.default_rng(1)
-    ms = plain_ms = 0.0
+    single_ms = plain_ms = 0.0
+    softs, plains, lengths = [], [], []
     for m, p in enumerate(C.MODES):
         nb = p.framebits
         bits = rng.integers(0, 2, (64, nb))
@@ -133,15 +190,33 @@ def phase_k1(card: str, dev: torch.device) -> dict:
             raise AssertionError(f'K1 mode {m}: kernel differs from plain '
                                  f'in {int((k != pl).sum())} bits')
         t_k = cuda_ms(lambda: fec_cuda.viterbi_decode(s, nb), 20)
-        ms += t_k
+        single_ms += t_k
         plain_ms += t_p
+        softs.append(s)
+        plains.append(pl)
+        lengths.append(nb)
         say(card, f'K1 mode {m}', frames=64, nbits=nb, bit_exact=True,
             bit_errors_vs_sent=int((k.cpu().numpy() != bits).sum()),
             kernel_ms=t_k, plain_ms=t_p)
+    # the main path's call: the eight modes of an event block, one launch
+    before = fec_cuda.launches
+    many = fec_cuda.viterbi_decode_many(softs, lengths)
+    if fec_cuda.launches != before + 1:
+        raise AssertionError('K1 many-mode wrapper did not launch once')
+    for m, (k, pl) in enumerate(zip(many, plains)):
+        if not torch.equal(k, pl):
+            raise AssertionError(f'K1 many-mode, mode {m}: kernel differs '
+                                 f'from plain in {int((k != pl).sum())} bits')
+    ms = cuda_ms(lambda: fec_cuda.viterbi_decode_many(softs, lengths), 20)
+    bnd = k1_bound(softs, many)
+    say(card, 'K1 event block', frames=64, modes=len(lengths), launches=1,
+        bit_exact=True, kernel_ms=ms, one_launch_per_mode_ms=single_ms,
+        plain_ms=plain_ms, **bnd)
     return dict(name='viterbi27', route='cuda',
                 source='dumphfdl_tpu_torch/csrc/viterbi.cu',
                 replaces='dumphfdl_tpu/ops/fec_pallas.py:50',
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bnd)
 
 
 def _close(a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
@@ -198,6 +273,13 @@ def phase_k2(card: str, dev: torch.device) -> dict:
     steps = 5400 // C.SPS               # the CLI's default demod block
     T = 3 * steps + trk.HALO
 
+    # the kernel's inline cosine/sine are cosf/sinf bit for bit
+    bad = tc.trig_mismatches(dev)
+    if bad:
+        raise AssertionError(f'K2 inline cos/sin differ from cosf/sinf for '
+                             f'{bad} arguments')
+    say(card, 'K2 trig', mismatches_vs_cosf_sinf=bad)
+
     # (a) 512 noise channels, gate off: every tile runs the loop; blocks of
     # the CLI's default length and of the scale run's (the kernels line)
     nch = 512
@@ -215,8 +297,9 @@ def phase_k2(card: str, dev: torch.device) -> dict:
         err = max(err, e)
         t_k = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
                                                use_acq=False), 5)
+        bnd = k2_bound(nch, t, n_sym)
         say(card, 'K2 noise', channels=nch, symbols=n_sym, max_abs_err=e,
-            kernel_ms=t_k, plain_ms=t_p)
+            kernel_ms=t_k, plain_ms=t_p, **bnd)
 
     # (b) real frames of all 8 modes (channel m carries mode m) beside 8
     # noise channels, gate on, the kernel's state (and acq_hit) carried
@@ -279,7 +362,8 @@ def phase_k2(card: str, dev: torch.device) -> dict:
     return dict(name='tracker', route='cuda',
                 source='dumphfdl_tpu_torch/csrc/tracker.cu',
                 replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
-                max_abs_err=max(err, err_f), ms=t_k, plain_ms=t_p)
+                max_abs_err=max(err, err_f), ms=t_k, plain_ms=t_p,
+                library_ms=None, **bnd)
 
 
 class _Recorder:
@@ -463,9 +547,11 @@ def phase_scale(card: str, dev: torch.device) -> dict:
         setup_s=[setup, setup2], wall_s=wall, rt_factor=duration / wall,
         warm_wall_s=wall2, warm_rt_factor=duration / wall2,
         max_memory_allocated=peak, launches=launches, **led)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'main path never launched kernel {name}')
+    # one demod block of capture and one of flush padding; all 16 frames
+    # end in the first, so there is one event block
+    if launches != {'viterbi27': 1, 'tracker': 2}:
+        raise AssertionError(f'main path launched {launches}, expected K2 '
+                             'twice and K1 once')
     # pass 3: warm, under the profiler
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
@@ -487,7 +573,8 @@ def main() -> int:
     launches = phase_scale(card, dev)
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms')
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'bound_bytes', 'bound_ops', 'chain_steps')
     print(card)
     print(json.dumps({'kernels': [{k: d[k] for k in keys} for d in (k1, k2)]}))
     print(json.dumps({'ok': True, 'device': {

@@ -2,9 +2,11 @@
 kernels for NVIDIA Hopper.
 
 Mirrors the tree of the JAX package (``dumphfdl_tpu``), which stays the
-reference it is tested against.  Host-only modules of that package that
-import no jax (constants, sequences, ops/{crc,interleave,bits}, protocol,
-io/{formats,formatters,outputs}, utils/statsd) are imported, not copied.
+reference it is tested against.  The port is self-contained: it imports
+nothing of that package and keeps its own copies of the host-only modules
+(constants, sequences, ops/{crc,interleave,bits}, protocol,
+io/{formats,formatters,outputs}, utils/{statsd,debug}), which a test holds
+equal to the originals.
 """
 
 __version__ = '0.1.0'

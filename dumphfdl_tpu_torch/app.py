@@ -16,10 +16,10 @@ import time as time_mod
 import torch
 
 from . import constants as C
-from dumphfdl_tpu.io.outputs import OutputManager
-from dumphfdl_tpu.ops.crc import pdu_hdr_len
-from dumphfdl_tpu.protocol.pdu import PduMetadata, parse_pdu
-from dumphfdl_tpu.protocol.runtime import ProtocolContext
+from .io.outputs import OutputManager
+from .ops.crc import pdu_hdr_len
+from .protocol.pdu import PduMetadata, parse_pdu
+from .protocol.runtime import ProtocolContext
 from .dsp.channel import FrameEvent
 from .dsp.receiver import WidebandReceiver
 

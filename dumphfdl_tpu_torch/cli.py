@@ -17,10 +17,10 @@ import sys
 
 import torch
 
-from dumphfdl_tpu.io.outputs import OutputManager, OutputSpec
-from dumphfdl_tpu.protocol.enrichment import AcCache, AcData, SysTable
-from dumphfdl_tpu.protocol.runtime import ProtocolContext, ProtocolOptions
-from dumphfdl_tpu.utils.statsd import StatsdClient
+from .io.outputs import OutputManager, OutputSpec
+from .protocol.enrichment import AcCache, AcData, SysTable
+from .protocol.runtime import ProtocolContext, ProtocolOptions
+from .utils.statsd import StatsdClient
 from . import __version__
 from .app import AppConfig, HfdlApp
 from .device import require_cuda
@@ -177,7 +177,7 @@ def build_app(args, device: torch.device) -> HfdlApp:
     )
     app = HfdlApp(cfg, ctx, outputs, statsd=statsd)
     if args.debug:
-        from dumphfdl_tpu.utils import debug
+        from .utils import debug
         debug.set_classes(args.debug)
     return app
 

@@ -15,10 +15,10 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from dumphfdl_tpu import sequences as seq
-from dumphfdl_tpu.ops import bits as bitops
-from dumphfdl_tpu.ops import crc
-from dumphfdl_tpu.ops import interleave
+from .. import sequences as seq
+from ..ops import bits as bitops
+from ..ops import crc
+from ..ops import interleave
 from ..ops import fec_cuda
 from ..ops import psk
 
@@ -32,15 +32,10 @@ def _mode_tables(mode: int, device) -> tuple[torch.Tensor, torch.Tensor]:
                             device=device))
 
 
-def _viterbi(soft: torch.Tensor, framebits: int) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    return fec_cuda.viterbi_decode(soft, framebits)
-
-
-def _decode_core(data_symbols: torch.Tensor, bitmask: torch.Tensor,
-                 mode: int) -> torch.Tensor:
+def _soft_chips(data_symbols: torch.Tensor, bitmask: torch.Tensor,
+                mode: int) -> torch.Tensor:
     """(B, num_data_symbols) complex64 symbols + (B,) bitmask -> (B,
-    framebits) int8 decoded bits."""
+    2*framebits) uint8 soft chips, deinterleaved, ready for Viterbi."""
     p = C.MODES[mode]
     scr, perm = _mode_tables(mode, data_symbols.device)
     flip = torch.where(bitmask.reshape(-1).to(torch.bool), -1.0, 1.0)
@@ -51,13 +46,15 @@ def _decode_core(data_symbols: torch.Tensor, bitmask: torch.Tensor,
         pairs = soft.reshape(soft.shape[0], -1, 2).to(torch.int32)
         a, b = pairs[..., 0], pairs[..., 1]
         soft = ((a & b) + ((a ^ b) >> 1)).to(torch.uint8)  # floor avg (hfdl.c:1032)
-    return _viterbi(soft, p.framebits)
+    return soft
 
 
 def decode_frame_batch(data_symbols: torch.Tensor, bitmask: torch.Tensor,
                        mode: int) -> torch.Tensor:
-    """Decode a batch of frames of one mode -> (B, framebits) int8 bits."""
-    return _decode_core(data_symbols, bitmask, mode)
+    """Decode a batch of frames of one mode -> (B, framebits) int8 bits
+    (K1 on a CUDA tensor, its plain version on a CPU tensor)."""
+    return fec_cuda.viterbi_decode(_soft_chips(data_symbols, bitmask, mode),
+                                   C.MODES[mode].framebits)
 
 
 MAX_FRAMEBITS = max(m.framebits for m in C.MODES)
@@ -152,8 +149,8 @@ def decode_events_inline(symring: torch.Tensor, base22: int,
     Returns an (e_max, 2 + PACK_WORDS) int32 matrix: column 0 is the flat
     event-table row (-1 = empty slot), column 1 the header-FCS verdict, the
     rest the decoded bits packed LSB-first into int32 words.  Every mode's
-    decoder runs on the padded batch and each event takes its mode's
-    result."""
+    decoder runs on the padded batch, all eight in one launch of K1, and
+    each event takes its mode's result."""
     from .tracker import EV_FIELDS, K_EVENTS
     c = symring.shape[0]
     dev = symring.device
@@ -170,8 +167,10 @@ def decode_events_inline(symring: torch.Tensor, base22: int,
     start22 = torch.where(ok, rows[:, 10].to(torch.int64), 0)
     syms = gather_event_symbols(symring, start22, base22, ch)
     sel = torch.zeros((e_max, MAX_FRAMEBITS), dtype=torch.int32, device=dev)
-    for m, p in enumerate(C.MODES):
-        bits_m = _decode_core(syms[:, :p.num_data_symbols], bmask, m)
+    bits = fec_cuda.viterbi_decode_many(
+        [_soft_chips(syms[:, :p.num_data_symbols], bmask, m)
+         for m, p in enumerate(C.MODES)], [p.framebits for p in C.MODES])
+    for m, (p, bits_m) in enumerate(zip(C.MODES, bits)):
         sel[:, :p.framebits] = torch.where(
             (mode == m)[:, None], bits_m.to(torch.int32),
             sel[:, :p.framebits])

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from dumphfdl_tpu.ops import crc
+from ..ops import crc
 from . import backend
 from . import tracker_cuda
 from .tracker import (EV_FIELDS, HALO, K_EVENTS, TrackerState,
@@ -402,8 +402,8 @@ class ChannelBank:
                 syms = backend.gather_event_symbols(
                     self.symring, pad(start22s), self._ringmeta[1],
                     pad(chans))[:, :p.num_data_symbols]
-                bits = backend._decode_core(syms, pad(bitmasks) != 0,
-                                            int(mode))
+                bits = backend.decode_frame_batch(syms, pad(bitmasks) != 0,
+                                                  int(mode))
                 pdus = backend.pdu_bytes_from_bits(bits[:n].cpu().numpy())
                 for r, pdu in zip(sel, pdus):
                     events[r] = events[r]._replace(

@@ -19,10 +19,10 @@ import dataclasses
 import numpy as np
 
 from .. import constants as C
-from dumphfdl_tpu import sequences as seq
-from dumphfdl_tpu.ops import bits as bitops
-from dumphfdl_tpu.ops import crc as crc_mod
-from dumphfdl_tpu.ops import interleave
+from .. import sequences as seq
+from ..ops import bits as bitops
+from ..ops import crc as crc_mod
+from ..ops import interleave
 from ..ops import fec
 from ..ops import psk
 

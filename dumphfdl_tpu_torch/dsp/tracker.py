@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from dumphfdl_tpu import sequences as seq
+from .. import sequences as seq
 
 # --- framer states (hfdl.c:54-62) ---
 A1_SEARCH, A2_SEARCH, M1_SEARCH, M2_SKIP, EQ_TRAIN, DATA_1, DATA_2 = range(1, 8)
@@ -317,14 +317,19 @@ def framer_fsm_step(*, fr, sw, retries, bitmask, mode, data_arity,
     return upd, flags
 
 
+def block_shift(state: TrackerState) -> torch.Tensor:
+    """(C,) int32 per-channel alignment of a block: round(tau) - HALO_FRONT,
+    clipped to +-8 samples."""
+    return torch.clamp(torch.round(state.tau).to(torch.int32) - HALO_FRONT,
+                       -8, 8)
+
+
 def align_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor):
     """Per-block channel alignment (as the JAX tracker does it): shift each
-    channel's window by round(tau) - HALO_FRONT (clipped to +-8) so every
-    channel reads near the same slab.  Returns (x_al, lvl_al, tau, shift);
-    x_al/lvl_al are (C, T + 8)."""
+    channel's window by block_shift so every channel reads near the same
+    slab.  Returns (x_al, lvl_al, tau, shift); x_al/lvl_al are (C, T + 8)."""
     c, t = x.shape
-    shift = torch.clamp(torch.round(state.tau).to(torch.int32) - HALO_FRONT,
-                        -8, 8)
+    shift = block_shift(state)
     zx = torch.zeros((c, 8), dtype=x.dtype, device=x.device)
     x_pad = torch.cat([zx, x, torch.zeros((c, 16), dtype=x.dtype,
                                           device=x.device)], dim=1)

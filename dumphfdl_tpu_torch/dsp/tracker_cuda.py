@@ -6,7 +6,8 @@ prekey and the repeated 127-symbol A sequence make every frame start
 periodic at a lag of 127 symbols, which the gate detects open-loop), marks
 each 128-channel tile active or idle, and then runs the symbol loop:
 
-* CUDA tensor -> ``csrc/tracker.cu`` (raises if it cannot launch);
+* CUDA tensor -> ``csrc/tracker.cu`` (one warp of 32 channels per block,
+  the samples staged through shared memory; raises if it cannot launch);
 * CPU tensor  -> the plain version, ``dsp/tracker.py:tracker_block``.
 
 The public layout is the JAX one: TrackerState in and out, TrackerOutputs
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from dumphfdl_tpu import sequences as seq
+from .. import sequences as seq
 from ..ops import _build
 from . import tracker as trk
 from .tracker import (A1_SEARCH, CT, EV_FIELDS, HALO, K_EVENTS,
@@ -134,19 +135,18 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
         raise ValueError(f'block of {t_len} samples is too short for '
                          f'{num_steps} symbols')
     c_pad = -(-c // CT) * CT
-    x_al, lvl_al, tau, shift = trk.align_block(state, x, level)
-    lvl_sym = trk.level_per_symbol(lvl_al, num_steps)
-
+    # the block alignment of tracker.align_block, as a shift the kernel
+    # applies while it copies the samples in: tau counts aligned samples
+    shift = trk.block_shift(state)
     pad_n = c_pad - c
-    st = state._replace(tau=tau)
+    st = state._replace(tau=state.tau - shift.to(torch.float32))
     if pad_n:                     # dummy channels: fresh state, no signal
         init = trk.tracker_init(pad_n, dev)
         st = TrackerState(*[None if a is None else torch.cat([a, b])
                             for a, b in zip(st, init)])
-    tc = lambda a, fill=0.0: torch.nn.functional.pad(
-        a, (0, 0, 0, pad_n), value=fill).T.contiguous()
-    xre, xim = tc(x_al.real), tc(x_al.imag)
-    lvl = tc(lvl_sym.contiguous(), 1.0)
+    shifts = torch.nn.functional.pad(shift, (0, pad_n)).contiguous()
+    xc = torch.view_as_real(x.contiguous())
+    lvl = level.contiguous()
     sf = torch.stack([getattr(st, f) for f in _SF]).contiguous()
     si = torch.stack([getattr(st, f).to(torch.int32) for f in _SI]) \
         .contiguous()
@@ -166,10 +166,10 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
     lib = _build.library()
     ptr = lambda a: a.data_ptr()
     err = lib.hfdl_tracker(
-        ptr(act), ptr(xre), ptr(xim), ptr(lvl), ptr(banks), ptr(eq0),
+        ptr(act), ptr(xc), ptr(lvl), ptr(shifts), ptr(banks), ptr(eq0),
         ptr(seqs), ptr(sf), ptr(si), ptr(eq), ptr(win), ptr(sym_re),
-        ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt), c_pad, num_steps,
-        trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
+        ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt), c_pad, c, t_len,
+        num_steps, trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'tracker kernel')
     launches += 1
@@ -191,6 +191,20 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
         data_idx=p // (2 * C.FRAME_PARITY_SLOTS),
         frame_parity=(p >> 1) & (C.FRAME_PARITY_SLOTS - 1))
     return final, outs, ev[:, :c].T, cnt[:, :c].T
+
+
+def trig_mismatches(device) -> int:
+    """How many of K2's own cosine and sine results (it evaluates the CUDA
+    math library's algorithm inline, both phases of a symbol side by side)
+    differ in any bit from ``cosf``/``sinf``, over every float the inline
+    path takes.  0 on a toolkit whose library the kernel reproduces; the
+    plain version's ``torch.cos``/``torch.sin`` then agree with it too."""
+    out = torch.zeros((1,), dtype=torch.int64, device=device)
+    lib = _build.library()
+    err = lib.hfdl_tracker_trig_mismatches(
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, 'tracker trig check')
+    return int(out.item())
 
 
 def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,

@@ -75,8 +75,12 @@ def library() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.hfdl_viterbi.argtypes = [p, p, i, i, p]
             lib.hfdl_viterbi.restype = i
-            lib.hfdl_tracker.argtypes = [p] * 16 + [i, i] + [f] * 4 + [p]
+            lib.hfdl_viterbi_many.argtypes = [p, p, p, p, i, p]
+            lib.hfdl_viterbi_many.restype = i
+            lib.hfdl_tracker.argtypes = [p] * 16 + [i, i, i, i] + [f] * 4 + [p]
             lib.hfdl_tracker.restype = i
+            lib.hfdl_tracker_trig_mismatches.argtypes = [p, p]
+            lib.hfdl_tracker_trig_mismatches.restype = i
             lib.hfdl_error_string.argtypes = [i]
             lib.hfdl_error_string.restype = ctypes.c_char_p
             build_info['seconds'] = time.perf_counter() - t0

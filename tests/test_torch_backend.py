@@ -136,3 +136,41 @@ def test_decode_events_inline_matches_jax():
             .reshape(-1)[:fb]
         assert backend.pdu_bytes_from_bits(bits[None])[0] \
             == pdus[int(got[row, 0])]
+
+
+def test_decode_events_inline_decodes_all_modes_in_one_call(monkeypatch):
+    """decode_events_inline hands the chips of all eight modes to the
+    many-mode Viterbi entry once, and each event's bits are those of
+    decode_frame_batch for its mode."""
+    from dumphfdl_tpu_torch.ops import fec_cuda
+    rng = np.random.default_rng(13)
+    c, ring_t, base22 = 2, 16384, 77
+    ring = ((rng.standard_normal((c, ring_t))
+             + 1j * rng.standard_normal((c, ring_t))) * 0.7) \
+        .astype(np.complex64)
+    table = np.zeros((c, 4, 11), np.float32)
+    table[0, 0, [0, 1, 2, 10]] = [1, 5, 1, base22 + 40]
+    table[1, 2, [0, 1, 2, 10]] = [1, 3, 0, base22 + 700]
+    calls = []
+    orig = fec_cuda.viterbi_decode_many
+
+    def counted(softs, nbits):
+        calls.append(list(nbits))
+        return orig(softs, nbits)
+    monkeypatch.setattr(fec_cuda, 'viterbi_decode_many', counted)
+    ringt = torch.as_tensor(ring)
+    got = backend.decode_events_inline(
+        ringt, base22, torch.as_tensor(table.reshape(c, 44)), 4).numpy()
+    assert calls == [[m.framebits for m in C.MODES]]
+    assert got[:, 0].tolist() == [0, 6, -1, -1]
+    for row, (ch, mode, flip, rel) in enumerate(((0, 5, True, 40),
+                                                 (1, 3, False, 700))):
+        p = C.MODES[mode]
+        syms = backend.gather_event_symbols(
+            ringt, torch.tensor([base22 + rel]), base22,
+            torch.tensor([ch]))[:, :p.num_data_symbols]
+        want = backend.decode_frame_batch(syms, torch.tensor([flip]), mode)
+        words = got[row, 2:].astype(np.uint32)
+        bits = ((words[:, None] >> np.arange(32, dtype=np.uint32)) & 1) \
+            .reshape(-1)[:p.framebits]
+        np.testing.assert_array_equal(bits, want[0].numpy())

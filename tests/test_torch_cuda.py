@@ -42,12 +42,54 @@ def test_viterbi_kernel_matches_plain(cuda, mode):
     assert torch.equal(got, fec.viterbi_decode(s, nbits))
 
 
+def test_viterbi_many_mode_launch_matches_plain(cuda):
+    """All eight frame lengths in one launch (one batch of 1 frame, one
+    empty): the plain version bit for bit, and one launch counted."""
+    rng = np.random.default_rng(8)
+    softs, lengths = [], []
+    for m, p in enumerate(C.MODES):
+        batch = (64, 1, 0, 7, 64, 3, 64, 64)[m]
+        softs.append(torch.as_tensor(
+            rng.integers(0, 256, (batch, 2 * p.framebits)).astype(np.uint8),
+            device=cuda))
+        lengths.append(p.framebits)
+    launches = fec_cuda.launches
+    got = fec_cuda.viterbi_decode_many(softs, lengths)
+    assert fec_cuda.launches == launches + 1
+    for g, s, n in zip(got, softs, lengths):
+        assert torch.equal(g, fec.viterbi_decode(s, n))
+
+
+def test_tracker_kernel_ragged_channel_count(cuda):
+    """Gate off, 200 channels (not a multiple of the 128-channel tile, nor
+    of a block's 32) and 150 symbols (two full chunks of the kernel's
+    shared-memory stages and a partial one): exact against the plain
+    version."""
+    nch, steps = 200, 150
+    t = steps * 3 + trk.HALO
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor((rng.standard_normal((nch, t))
+                         + 1j * rng.standard_normal((nch, t)))
+                        .astype(np.complex64), device=cuda)
+    lvl = torch.as_tensor((np.abs(rng.standard_normal((nch, t))) + 0.5)
+                          .astype(np.float32), device=cuda)
+    st = trk.tracker_init(nch, cuda)
+    k = tracker_cuda.tracker_block(st, x, lvl, steps, use_acq=False)
+    p = trk.tracker_block(st, x, lvl, steps, None)
+    for a, b in zip(k[0][:-1], p[0][:-1]):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert torch.equal(k[1].sym, p[1].sym)
+    assert torch.equal(k[1].data_idx, p[1].data_idx)
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+
+
 def test_tracker_kernel_matches_plain(cuda):
     """Through the wrapper, gate on: tile 0 runs the loop on noise (its
     channels carry a preamble hit from the last block) and tile 1 is idle.
     The kernel reproduces the plain version's arithmetic exactly, and the
     wrapper carries this block's hits."""
-    nch, steps = 130, 200
+    nch, steps = 130, 300     # long enough for the gate to assess
     t = steps * 3 + trk.HALO
     rng = np.random.default_rng(1)
     x = torch.as_tensor((rng.standard_normal((nch, t))

@@ -62,3 +62,30 @@ def test_wrapper_routes_cpu_tensors_to_plain():
     got = fec_cuda.viterbi_decode(torch.as_tensor(soft.astype(np.uint8)), 540)
     assert fec_cuda.launches == before          # no kernel on the CPU
     np.testing.assert_array_equal(got.numpy(), bits)
+
+
+def test_many_mode_entry_matches_per_mode_decode():
+    """viterbi_decode_many on CPU tensors (the eight frame lengths of an
+    event block, one batch empty): the per-mode viterbi_decode bit for
+    bit, the JAX numpy decoder too, and no kernel launch."""
+    rng = np.random.default_rng(21)
+    lengths = [m.framebits for m in C.MODES]
+    softs = []
+    for k, nbits in enumerate(lengths):
+        soft = np.zeros((0, 2 * nbits)) if k == 3 \
+            else _noisy_frames(rng, nbits, 2, 110)[1]
+        softs.append(torch.as_tensor(soft.astype(np.uint8)))
+    before = fec_cuda.launches
+    got = fec_cuda.viterbi_decode_many(softs, lengths)
+    assert fec_cuda.launches == before
+    assert [tuple(g.shape) for g in got] == [
+        (s.shape[0], n) for s, n in zip(softs, lengths)]
+    for g, s, nbits in zip(got, softs, lengths):
+        assert torch.equal(g, fec_cuda.viterbi_decode(s, nbits))
+        for row, chips in zip(g.numpy(), s.numpy()):
+            np.testing.assert_array_equal(
+                row, jfec.viterbi_decode_np(chips.astype(np.int32), nbits))
+    with pytest.raises(ValueError):
+        fec_cuda.viterbi_decode_many(softs, lengths[:-1])
+    with pytest.raises(ValueError):
+        fec_cuda.viterbi_decode_many([softs[0]], [lengths[1]])

@@ -122,27 +122,44 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and chip_smoke.py) leaves jax
-    out of sys.modules."""
+    """Importing every module of the port (and chip_smoke.py, the CLI and
+    the app) leaves jax and the JAX package out of sys.modules."""
     code = ('import importlib, pkgutil, sys, dumphfdl_tpu_torch as p\n'
             'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
             '    importlib.import_module(m.name)\n'
-            'import chip_smoke, dumphfdl_tpu_torch.cli\n'
-            'print(sorted(k for k in sys.modules if k.split(".")[0] == "jax"'
-            ' or k.startswith("jaxlib")))\n')
+            'import chip_smoke, dumphfdl_tpu_torch.cli, dumphfdl_tpu_torch.app\n'
+            'print(sorted(k for k in sys.modules if k.split(".")[0] in'
+            ' ("jax", "dumphfdl_tpu") or k.startswith("jaxlib")))\n')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, cwd=ROOT, env=_env(), check=True)
     assert out.stdout.strip() == '[]'
 
 
+def _import_roots(path):
+    tree = ast.parse(path.read_text())
+    roots = {a.name.split('.')[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    # level > 0 is a relative import: it stays inside the port
+    return roots | {n.module.split('.')[0] for n in ast.walk(tree)
+                    if isinstance(n, ast.ImportFrom) and n.module
+                    and n.level == 0}
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """No .py of the port, and not chip_smoke.py, has an import statement
+    (at any depth of the syntax tree) naming jax or dumphfdl_tpu."""
+    files = sorted((ROOT / 'dumphfdl_tpu_torch').rglob('*.py')) \
+        + [ROOT / 'chip_smoke.py']
+    assert len(files) > 40
+    bad = {str(f.relative_to(ROOT)): sorted(
+        _import_roots(f) & {'dumphfdl_tpu', 'jax', 'jaxlib'}) for f in files}
+    assert {f: r for f, r in bad.items() if r} == {}
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py drives the port alone: it imports neither jax nor the
     JAX package, at module level or inside a phase."""
-    tree = ast.parse((ROOT / 'chip_smoke.py').read_text())
-    roots = {a.name.split('.')[0] for n in ast.walk(tree)
-             if isinstance(n, ast.Import) for a in n.names}
-    roots |= {n.module.split('.')[0] for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and n.module}
+    roots = _import_roots(ROOT / 'chip_smoke.py')
     assert 'dumphfdl_tpu_torch' in roots
     assert not roots & {'dumphfdl_tpu', 'jax', 'jaxlib'}
 
