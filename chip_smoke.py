@@ -30,13 +30,53 @@ Phases, each printing one line with the card's name and power limit:
                first pass: K2 twice (one block of capture, one of flush
                padding), K1 once (one event block).  A second pass (fresh app) gives the warm wall
                time, a third runs under torch.profiler and gives the
-               device's busy share and its time by kernel kind.
+               device's busy share and its time by kernel kind;
+7. K2 taps  -- the kernel's debug_taps instantiation at 512 x 1800 symbols:
+               exact against the plain version, taps included, and
+               bit-equal in symbols, state, events and counters to the
+               normal instantiation with the gate off; its time, bound and
+               both instantiations' registers (ptxas);
+8. unfused  -- the same 512-channel capture with the CLI's default
+               --demod-block 5400, which at 2.16 Msps takes the unfused
+               channelizer path: exact ledger, wall and device operations
+               beside the fused phase's;
+9. superstep - the streaming main path at full width: 1024 channels at
+               3.456 Msps CS16 with --demod-block 16200 (the aligned block
+               is 10752 samples, 15 frames of a 524288-point FFT,
+               6,881,280 wideband samples per block), every 32nd channel
+               emitting, a capture of more than three super-blocks.
+               Through HfdlApp.run_file: the engine engaged, every block
+               after the first a graph replay, exact ledger (all 32 frames
+               once, nothing else decoded; the only FCS-failing frames
+               allowed are the alias images two channels from an emitter,
+               see ALIAS_STEP, and the same emissions under in-band noise
+               that covers the images must give no junk at all); the graph
+               held bit for bit against the eager step on the same input
+               (SuperstepEngine.verify_graph); K2's wrapper against the
+               plain version on the very blocks the step hands it (1024
+               channels x 3584 symbols, gate on, carried state: exact);
+               cold and warm wall; one eager and one graph pass under
+               torch.profiler, whose kernel events give K2's launches per
+               block on either path;
+10. stream  -- the same capture as 65536-sample complex64 chunks through
+               run_stream and as raw CS16 buffers through run_stream_raw:
+               the same ledger, 0 overruns;
+11. datadumps - the golden capture through the CLI with --datadumps in a
+               scratch directory: nine files per channel with the expected
+               sample counts, the pinned bytes decoded, the taps kernel
+               launched.
 
 Each kernel's line carries bound_ms, the least time the card could take
 for the same work: the larger of the bytes the function must move over the
 memory rate and its operations over the peak rate, both computed here from
 the shapes that were run.  Neither kernel can reach it (both are chains of
 dependent steps), so the chain's length is printed beside it.
+
+Every pass decodes with a fresh app.  The first app of a configuration
+designs its channel filters (setup_s is that construction's time); the
+later apps of the same configuration take over its tables (_shared_design),
+so that the script's time goes into the passes and not into repeating one
+host computation.
 
 The second-to-last line is the kernels' JSON summary, the last line
 {"ok": true, "device": {...}}.  Any failed phase raises (exit code != 0).
@@ -47,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -98,16 +139,18 @@ def k1_bound(softs, outs) -> dict:
                 chain_steps=longest + -(-(longest - 6) // 32) + 96)
 
 
-def k2_bound(nch: int, t_len: int, n_sym: int) -> dict:
+def k2_bound(nch: int, t_len: int, n_sym: int, taps: bool = False) -> dict:
     """What one tracker call must move, in 4-byte words: x (nch, t_len)
     complex64 in, one level sample per channel and symbol in (the function
     needs no other of the (nch, t_len) level), sym_re/sym_im/packed
     (n_sym, c_pad) out, the state planes (8 + 19 + 60 + 4 rows of c_pad)
     in and out, the shifts (c_pad) in, the event table (44) and counters
-    (4) out.  chain_steps: the symbols of a channel, each depending on the
-    one before."""
+    (4) out, and with taps three more (n_sym, c_pad) planes out.
+    chain_steps: the symbols of a channel, each depending on the one
+    before."""
     c_pad = -(-nch // 128) * 128
-    words = nch * (2 * t_len + n_sym) + c_pad * (3 * n_sym + 2 * 91 + 1 + 48)
+    words = nch * (2 * t_len + n_sym) \
+        + c_pad * ((6 if taps else 3) * n_sym + 2 * 91 + 1 + 48)
     return dict(bound(4 * words, K2_OPS_PER_SYMBOL * nch * n_sym),
                 chain_steps=n_sym)
 
@@ -448,25 +491,63 @@ def device_profile(prof, wall_s: float) -> dict:
                          sorted(kinds.items(), key=lambda kv: -kv[1][0])})
 
 
-def _ledger(events, emit_by_chan: dict) -> dict:
+# A frame that fails its header FCS is junk: the app counts and drops it.
+# One kind is expected on the 1024-channel capture.  There the channels are
+# 3355 Hz apart and each leaves the channelizer at 6750 sps, so a
+# transmission two channels away (6710 Hz) folds onto a channel 40 Hz off
+# its centre, through the channel filter's stopband (-76 dB at that
+# offset).  The capture's noise lies below that: the modulator's 30 dB is
+# per wideband sample, about 86 dB in a channel's own band at this rate.
+# So a quiet channel two from an emitter may lock on the image while the
+# frame lasts and decode a frame of the emitter's mode that fails its FCS.
+# ALIAS_STEP names that neighbour; junk anywhere else, at another time or
+# of another mode fails the ledger.  The superstep phase shows the cause: the
+# same emissions under noise of NOISY_SNR_DB (about 30 dB in a channel's
+# band, 46 dB above the images) must decode with no junk at all.
+ALIAS_STEP = 2
+ALIAS_WINDOW = 64           # symbols around the emitter's frame start
+NOISY_SNR_DB = -26.0
+
+
+def _ledger(events, emit_by_chan: dict, alias_step: int | None = None) -> dict:
     """Every decoded frame against the emitted set: exact when each
-    emitting channel decoded its frame once and nothing else came out."""
-    cells, junk, other = {}, 0, 0
+    emitting channel decoded its frame once and nothing else came out.
+    With alias_step, FCS-failing frames on a quiet channel that many
+    channels from an emitter, of the emitter's mode and starting within
+    ALIAS_WINDOW symbols of the emitter's frame, are counted apart
+    (frames_alias_junk) and allowed."""
+    cells, other, junk_evs, heard = {}, 0, [], {}
     for ev in events:
         if ev.pdu is None:
             continue
         if not ev.fcs_ok:
-            junk += 1
+            junk_evs.append(ev)
             continue
         exp = emit_by_chan.get(ev.channel)
         if exp is not None and ev.pdu[:len(exp)] == exp:
             cells[ev.channel] = cells.get(ev.channel, 0) + 1
+            heard[ev.channel] = (ev.start_symbol, ev.mode)
         else:
             other += 1
+    alias_at, junk_at = [], []
+    for ev in junk_evs:
+        near = [] if alias_step is None or ev.channel in emit_by_chan else \
+            [heard[c] for c in (ev.channel - alias_step,
+                                ev.channel + alias_step) if c in heard]
+        where = [ev.channel, ev.mode, ev.start_symbol]
+        if any(abs(ev.start_symbol - s0) <= ALIAS_WINDOW and ev.mode == m0
+               for s0, m0 in near):
+            alias_at.append(where)
+        else:
+            junk_at.append(where)
+    junk = len(junk_at)
     led = dict(frames_ok=sum(cells.values()), frames_expected=len(emit_by_chan),
-               frames_junk=junk, frames_other=other,
+               frames_junk=junk, frames_alias_junk=len(alias_at),
+               frames_other=other,
                frames_duplicate=sum(n - 1 for n in cells.values() if n > 1),
-               missing_channels=sorted(set(emit_by_chan) - set(cells)))
+               missing_channels=sorted(set(emit_by_chan) - set(cells)),
+               # [channel, mode, start symbol]
+               junk_at=junk_at[:8], alias_at=alias_at[:12])
     led['exact'] = (led['frames_ok'] == len(emit_by_chan) and not junk
                     and not other and not led['frames_duplicate']
                     and not led['missing_channels'])
@@ -474,90 +555,505 @@ def _ledger(events, emit_by_chan: dict) -> dict:
 
 
 def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
-                prof=None):
+                prof=None, drive=None, prepare=None, alias_step=None):
     """Build the app as the CLI does and decode the capture once:
-    (set-up seconds, run_file wall seconds, ledger)."""
+    (set-up seconds, wall seconds of the decode, ledger, app).  drive(app,
+    args) feeds the app (default: run_file on the file); prepare(app) may
+    adjust it first."""
     from dumphfdl_tpu_torch import cli
     args = cli.build_parser().parse_args(argv)
     t0 = time.perf_counter()
     app = cli.build_app(args, dev)
     setup = time.perf_counter() - t0
+    if prepare is not None:
+        prepare(app)
+    if drive is None:
+        drive = lambda app, args: app.run_file(args.iq_file,
+                                               args.sample_format)
     rec = _Recorder()
     torch.cuda.synchronize()
     try:
         with prof if prof is not None else contextlib.nullcontext():
             t0 = time.perf_counter()
-            app.run_file(args.iq_file, args.sample_format)
+            drive(app, args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         rec.close()
         app.shutdown()
-    led = _ledger(rec.events, emit_by_chan)
+    led = _ledger(rec.events, emit_by_chan, alias_step)
     if not led['exact']:
-        raise AssertionError(f'scale ledger not exact: {led}')
-    return setup, wall, led
+        raise AssertionError(f'ledger not exact: {led}')
+    return setup, wall, led, app
 
 
-def phase_scale(card: str, dev: torch.device) -> dict:
-    """bench.py's end-to-end child, first rung: 512 channels at 2.16 Msps
-    CS16, traffic on every 32nd channel cycling through the single-slot
-    modes, 30 dB SNR; decoded in three passes, each with a fresh app and
-    an exact ledger."""
-    from dumphfdl_tpu_torch.dsp import modulator, tracker_cuda
+def _profiler():
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+@contextlib.contextmanager
+def _shared_design():
+    """While this is open, a Channelizer whose deployment (geometry, rate,
+    centre, channel list, rows) was designed before takes over those filter
+    tables instead of designing them again.  The tables are a pure function
+    of the deployment and are only read."""
+    from dumphfdl_tpu_torch.dsp import frontend
+    design, done = frontend._design_tables, {}
+
+    def shared(*deployment):
+        if deployment not in done:
+            done[deployment] = design(*deployment)
+        return done[deployment]
+    frontend._design_tables = shared
+    try:
+        yield
+    finally:
+        frontend._design_tables = design
+
+
+def _bench_capture(nch: int, fs: int, name: str, pad_symbols: int = 300,
+                   emitters: int = 16, snr_db: float = 30.0):
+    """bench.py's end-to-end capture: nch channels around 10 MHz, traffic
+    on `emitters` evenly spaced channels cycling through the single-slot
+    modes, snr_db of SNR (bench.py's 30 dB), CS16, made by the numpy
+    modulator from seed 0.  Returns (path, freqs, center, emitted PDU by
+    channel, seconds of capture, seconds it took to make)."""
+    from dumphfdl_tpu_torch.dsp import modulator
     from dumphfdl_tpu_torch.io import formats
-    from dumphfdl_tpu_torch.ops import fec_cuda
-
-    nch, fs, center = 512, 2_160_000, 10_000_000
+    center = 10_000_000
     spacing = max(3000, min(8000, (fs - 20000) // nch))
     freqs = [center + (i - nch // 2) * spacing for i in range(nch)]
     single = [m for m in range(len(C.MODES)) if C.MODES[m].slot == 'S']
     rng = np.random.default_rng(0)
     emissions, emit_by_chan = [], {}
-    for k, ci in enumerate(range(0, nch, nch // 16)):
+    for k, ci in enumerate(range(0, nch, nch // emitters)):
         mode = single[k % len(single)]
         pdu = modulator.make_test_mpdu(mode, rng)
         emissions.append((pdu, mode, freqs[ci]))
         emit_by_chan[ci] = pdu
     t0 = time.perf_counter()
     wb = modulator.synthesize_wideband_fft(emissions, fs=fs, centerfreq=center,
-                                           snr_db=30.0)
-    path = WORK / 'scale.cs16'
+                                           snr_db=snr_db,
+                                           pad_symbols=pad_symbols)
+    path = WORK / name
     path.write_bytes(formats.serialize(wb, 'CS16'))
-    duration = len(wb) / fs
-    synth_s = time.perf_counter() - t0
-    del wb
-    argv = ['--iq-file', str(path), '--sample-format', 'CS16',
+    return (path, freqs, center, emit_by_chan, len(wb) / fs,
+            time.perf_counter() - t0)
+
+
+def _argv(path, fs: int, center: int, freqs, block: int, out: str) -> list:
+    return ['--iq-file', str(path), '--sample-format', 'CS16',
             '--sample-rate', str(fs), '--centerfreq', str(center / 1000),
-            '--demod-block', str(DEMOD_BLOCK),
-            '--output', f'decoded:text:file:path={WORK / "scale.txt"}'] \
+            '--demod-block', str(block),
+            '--output', f'decoded:text:file:path={WORK / out}'] \
         + [str(f / 1000) for f in freqs]
+
+
+def phase_scale(card: str, dev: torch.device):
+    """bench.py's end-to-end child, first rung: 512 channels at 2.16 Msps
+    CS16, traffic on every 32nd channel cycling through the single-slot
+    modes, 30 dB SNR; decoded in three passes, each with a fresh app and
+    an exact ledger.  Returns (launches, capture) for the unfused phase."""
+    from dumphfdl_tpu_torch.dsp import tracker_cuda
+    from dumphfdl_tpu_torch.ops import fec_cuda
+
+    nch, fs = 512, 2_160_000
+    cap = _bench_capture(nch, fs, 'scale.cs16')
+    path, freqs, center, emit_by_chan, duration, synth_s = cap
+    argv = _argv(path, fs, center, freqs, DEMOD_BLOCK, 'scale.txt')
 
     # pass 1, the first of the process: launch counters and peak memory
     torch.cuda.reset_peak_memory_stats()
     fec_cuda.launches = tracker_cuda.launches = 0
-    setup, wall, led = _scale_pass(argv, dev, emit_by_chan)
+    setup, wall, led, _ = _scale_pass(argv, dev, emit_by_chan)
     launches = {'viterbi27': fec_cuda.launches,
                 'tracker': tracker_cuda.launches}
     peak = torch.cuda.max_memory_allocated(dev)
-    # pass 2: warm
-    setup2, wall2, _ = _scale_pass(argv, dev, emit_by_chan)
+    # pass 2: warm (a fresh app on the first one's filter tables)
+    setup2, wall2, _, _ = _scale_pass(argv, dev, emit_by_chan)
     say(card, 'scale', channels=nch, sample_rate=fs, fmt='CS16',
         demod_block=DEMOD_BLOCK, capture_s=duration, synth_s=synth_s,
-        setup_s=[setup, setup2], wall_s=wall, rt_factor=duration / wall,
-        warm_wall_s=wall2, warm_rt_factor=duration / wall2,
-        max_memory_allocated=peak, launches=launches, **led)
+        setup_s=setup, setup_shared_design_s=setup2, wall_s=wall,
+        rt_factor=duration / wall, warm_wall_s=wall2,
+        warm_rt_factor=duration / wall2, max_memory_allocated=peak,
+        launches=launches, **led)
     # one demod block of capture and one of flush padding; all 16 frames
     # end in the first, so there is one event block
     if launches != {'viterbi27': 1, 'tracker': 2}:
         raise AssertionError(f'main path launched {launches}, expected K2 '
                              'twice and K1 once')
     # pass 3: warm, under the profiler
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    _, wall3, _ = _scale_pass(argv, dev, emit_by_chan, prof)
+    prof = _profiler()
+    _, wall3, _, _ = _scale_pass(argv, dev, emit_by_chan, prof)
     say(card, 'scale profile', wall_s=wall3, **device_profile(prof, wall3))
+    return launches, cap
+
+
+def phase_k2_taps(card: str, dev: torch.device) -> dict:
+    """K2's debug_taps instantiation at 512 channels x 1800 symbols."""
+    from dumphfdl_tpu_torch.dsp import tracker as trk
+    from dumphfdl_tpu_torch.dsp import tracker_cuda as tc
+    from dumphfdl_tpu_torch.tools import kernel_times
+    rng = np.random.default_rng(12)
+    nch, n_sym = 512, 5400 // C.SPS
+    t = 3 * n_sym + trk.HALO
+    x = torch.as_tensor((rng.standard_normal((nch, t))
+                         + 1j * rng.standard_normal((nch, t)))
+                        .astype(np.complex64), device=dev)
+    lvl = torch.as_tensor((np.abs(rng.standard_normal((nch, t))) + 0.5)
+                          .astype(np.float32), device=dev)
+    st = trk.tracker_init(nch, dev)
+    before = tc.launches, tc.taps_launches
+    r_k = tc.tracker_block(st, x, lvl, n_sym, debug_taps=True)
+    if (tc.launches, tc.taps_launches) != (before[0], before[1] + 1):
+        raise AssertionError('K2 taps: the wrapper did not launch the taps '
+                             'instantiation once')
+    r_p, t_p = timed_ms(lambda: trk.tracker_block(st, x, lvl, n_sym, None,
+                                                  debug_taps=True))
+    # acq_hit is the wrapper's to carry; with the gate off it stays
+    r_p = (r_p[0]._replace(acq_hit=r_k[0].acq_hit), *r_p[1:])
+    if _compare_k2('taps vs plain', *r_k, *r_p, tol=0.0) != 0.0:
+        raise AssertionError('K2 taps: not exact against the plain version')
+    if r_k[1].taps.shape != (n_sym, nch, 3) \
+            or not torch.equal(r_k[1].taps, r_p[1].taps):
+        raise AssertionError('K2 taps: the taps differ from the plain '
+                             "version's")
+    if not bool((r_k[1].taps.abs().amax(dim=(0, 1)) > 0).all()):
+        raise AssertionError('K2 taps: a plane of taps is all zero')
+    r_off = tc.tracker_block(st, x, lvl, n_sym, use_acq=False)
+    if r_off[1].taps is not None or \
+            _compare_k2('taps on vs off', *r_k, *r_off, tol=0.0) != 0.0:
+        raise AssertionError('K2 taps: taps-on differs from taps-off')
+    ms = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
+                                          debug_taps=True), 5)
+    off_ms = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
+                                              use_acq=False), 5)
+    lines = kernel_times.ptxas_report()['tracker.cu']
+    regs = {'normal': kernel_times.registers(lines, 'tracker_kernelILb0EE'),
+            'taps': kernel_times.registers(lines, 'tracker_kernelILb1EE')}
+    bnd = k2_bound(nch, t, n_sym, taps=True)
+    say(card, 'K2 taps', channels=nch, symbols=n_sym, exact_vs_plain=True,
+        taps_exact=True, bit_equal_to_taps_off=True, kernel_ms=ms,
+        taps_off_ms=off_ms, plain_ms=t_p, registers=regs, **bnd)
+    return dict(name='tracker_taps', route='cuda',
+                source='dumphfdl_tpu_torch/csrc/tracker.cu',
+                replaces='dumphfdl_tpu/dsp/tracker_pallas.py:426',
+                max_abs_err=0.0, ms=ms, plain_ms=t_p, library_ms=None, **bnd)
+
+
+def phase_unfused(card: str, dev: torch.device, cap) -> None:
+    """The scale capture with the CLI's default --demod-block 5400: at
+    2.16 Msps no whole number of resampler cosets, so the receiver takes
+    the unfused channelizer path."""
+    path, freqs, center, emit_by_chan, duration, _ = cap
+    argv = _argv(path, 2_160_000, center, freqs, 5400, 'unfused.txt')
+    checked = []
+
+    def prepare(app):
+        rx = app.receiver
+        if rx.fused or rx.superstep is not None:
+            raise AssertionError('unfused phase: the receiver took another '
+                                 'path')
+        checked.append(rx)
+    _, wall, led, _ = _scale_pass(argv, dev, emit_by_chan, prepare=prepare)
+    prof = _profiler()
+    _, wall_p, _, _ = _scale_pass(argv, dev, emit_by_chan, prof,
+                                  prepare=prepare)
+    dp = device_profile(prof, wall_p)
+    say(card, 'unfused', channels=len(freqs), sample_rate=2_160_000,
+        demod_block=5400, capture_s=duration, wall_s=wall,
+        rt_factor=duration / wall, profiled_wall_s=wall_p,
+        receivers_checked=len(checked), **led, **dp)
+
+
+def _superstep_pass(*args, **kw):
+    """_scale_pass for the 1024-channel capture, whose ledger allows the
+    alias images (ALIAS_STEP)."""
+    return _scale_pass(*args, alias_step=ALIAS_STEP, **kw)
+
+
+def _k2_events(dp: dict) -> int:
+    """K2's kernel events in a profiled pass (device_profile)."""
+    return dp['by_kind'].get('K2 tracker', [0.0, 0])[1]
+
+
+def _k2_on_superstep_blocks(card: str, vapp, chunks) -> dict:
+    """K2 at the shape the superstep gives it.  Runs the engine's step
+    eagerly on the uploaded chunks while recording what it hands
+    tracker_cuda.tracker_block (the carried TrackerState, the extended
+    matched-filter block and level, 1024 x (3 * 3584 + HALO), gate on), then
+    holds the wrapper against the plain version on each recorded block:
+    exact.  Times the wrapper on the last one.  Returns the kernels-line
+    entry (without its launches)."""
+    from dumphfdl_tpu_torch.dsp import tracker as trk
+    from dumphfdl_tpu_torch.dsp import tracker_cuda as tc
+    ss = vapp.receiver.superstep
+    seen, wrapper = [], tc.tracker_block
+
+    def recording(state, x, level, num_steps, use_acq=True,
+                  debug_taps=False):
+        seen.append((trk.TrackerState(*[None if v is None else v.clone()
+                                        for v in state]),
+                     x.clone(), level.clone(), num_steps, use_acq,
+                     debug_taps))
+        return wrapper(state, x, level, num_steps, use_acq, debug_taps)
+
+    ss.use_graph = False            # eager steps: the wrapper is called
+    tc.tracker_block = recording
+    try:
+        for chunk in chunks:
+            vapp.receiver.process_packed(chunk)
+    finally:
+        tc.tracker_block = wrapper
+    if len(seen) != len(chunks):
+        raise AssertionError(f'superstep K2: {len(seen)} wrapper calls in '
+                             f'{len(chunks)} steps')
+    events = 0
+    for i, (st, x, lvl, n_sym, use_acq, taps) in enumerate(seen):
+        if (tuple(x.shape), n_sym, use_acq, taps) != \
+                ((ss.rows, 3 * ss.plan.symbols + trk.HALO),
+                 ss.plan.symbols, True, False):
+            raise AssertionError(f'superstep K2: the step handed the wrapper '
+                                 f'{tuple(x.shape)}, {n_sym}, {use_acq}')
+        act, _ = tc.tile_activity(st, x, True)
+        r_k, r_p, t_p = _k2_pair(st, x, lvl, n_sym, use_acq=True)
+        if _compare_k2(f'superstep block {i}', *r_k, *r_p, tol=0.0) != 0.0:
+            raise AssertionError('superstep K2: not exact')
+        ev = r_k[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)
+        n_ev = int((ev[:, :, 0] > 0.5).sum())
+        events += n_ev
+        tiles = int(act.sum())
+        t_k = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
+                                               use_acq=True), 5)
+        # the work of this block's data: its active tiles' channels
+        bnd = k2_bound(tiles * trk.CT, x.shape[1], n_sym)
+        say(card, 'superstep K2', block=i, channels=x.shape[0],
+            symbols=n_sym, gate=True, active_tiles=tiles, tiles=len(act),
+            events=n_ev, max_abs_err=0.0, kernel_ms=t_k, plain_ms=t_p, **bnd)
+    if events < 1 or tiles < 1:
+        raise AssertionError('superstep K2: the compared blocks carried no '
+                             'frame')
+    return dict(name='tracker_superstep', route='cuda',
+                source='dumphfdl_tpu_torch/csrc/tracker.cu',
+                replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
+                max_abs_err=0.0, ms=t_k, plain_ms=t_p, library_ms=None, **bnd)
+
+
+def phase_superstep(card: str, dev: torch.device):
+    """The second rung of bench.py's end-to-end child on the superstep:
+    1024 channels at 3.456 Msps CS16, --demod-block 16200, a frame on
+    every 32nd channel.  Returns (the wrappers' launch counts over the
+    first pass, K2's kernels-line entry at this path's shape)."""
+    from dumphfdl_tpu_torch.dsp import tracker_cuda
+    from dumphfdl_tpu_torch.io import formats, ingest
+    from dumphfdl_tpu_torch.ops import fec_cuda
+    nch, fs, block = 1024, 3_456_000, 16200
+    # 3488 symbols of silence either side of the frames: 6.3 s of capture,
+    # a length whose FFT has only small factors (the synthesis is one FFT)
+    cap = _bench_capture(nch, fs, 'superstep.cs16', pad_symbols=3488,
+                         emitters=nch // 32)
+    path, freqs, center, emit_by_chan, duration, synth_s = cap
+    argv = _argv(path, fs, center, freqs, block, 'superstep.txt')
+    engines = []
+
+    def engaged(app):
+        ss = app.receiver.superstep
+        if ss is None or not ss.use_graph or ss.input_kind != 'CS16':
+            raise AssertionError('superstep phase: the engine did not '
+                                 'engage with a graph')
+        engines.append(ss)
+
+    def eager(app):
+        engaged(app)
+        app.receiver.superstep.use_graph = False
+
+    # pass 1, cold: the wrappers' launch counts, peak memory, the plan
+    torch.cuda.reset_peak_memory_stats()
+    fec_cuda.launches = tracker_cuda.launches = 0
+    tracker_cuda.taps_launches = 0
+    setup, wall, led, app = _superstep_pass(argv, dev, emit_by_chan,
+                                            prepare=engaged)
+    launches = {'viterbi27': fec_cuda.launches,
+                'tracker': tracker_cuda.launches,
+                'tracker_taps': tracker_cuda.taps_launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    ss = engines[-1]
+    plan = ss.plan
+    want = dict(out_chunk=10752, frames=15, wb_chunk=6_881_280)
+    if {k: getattr(plan, k) for k in want} != want:
+        raise AssertionError(f'superstep plan {plan}, expected {want}')
+    n_capture = -(-os.path.getsize(path) // ss.raw_chunk_bytes)
+    if n_capture < 3:
+        raise AssertionError('capture shorter than three super-blocks')
+    # the wrapper launches K2 in the eager first block and once more while
+    # the graph is recorded; every later block is a replay of that graph
+    # (what the replays run is read from the profiled passes below)
+    if ss.replays != ss.blocks_done - 1 or ss.replays < n_capture \
+            or launches['tracker'] != 2 or launches['viterbi27'] < 1 \
+            or launches['tracker_taps']:
+        raise AssertionError(
+            f'superstep ran {ss.blocks_done} blocks, {ss.replays} replays, '
+            f'launched {launches}')
+    # pass 2, warm: a fresh app on the first one's filter tables (the graph
+    # is captured anew)
+    setup2, wall2, _, _ = _superstep_pass(argv, dev, emit_by_chan,
+                                          prepare=engaged)
+    say(card, 'superstep', channels=nch, sample_rate=fs, fmt='CS16',
+        demod_block=block, out_chunk=plan.out_chunk, frames=plan.frames,
+        sub=plan.sub, wb_chunk=plan.wb_chunk,
+        raw_chunk_bytes=ss.raw_chunk_bytes, capture_s=duration,
+        synth_s=synth_s, capture_blocks=n_capture, blocks=ss.blocks_done,
+        graph_replays=ss.replays, setup_s=setup, setup_shared_design_s=setup2,
+        wall_s=wall, rt_factor=duration / wall, warm_wall_s=wall2,
+        warm_rt_factor=duration / wall2, max_memory_allocated=peak,
+        wrapper_launches=launches, **led)
+
+    # the graph against the eager step, bit for bit, on the capture's
+    # second block after the first has run (a receiver of its own); then K2
+    # against its plain version on the blocks the next two steps give it
+    _, _, _, vapp = _superstep_pass(
+        _argv(path, fs, center, freqs, block, 'superstep.txt'), dev, {},
+        prepare=engaged, drive=lambda app, args: None)
+    vss = vapp.receiver.superstep
+    with open(path, 'rb') as fh:
+        chunks = [vss.upload(c) for _, c in zip(range(4), ingest.file_chunks(
+            fh, 'CS16', vss.raw_chunk_bytes, pad_final=True))]
+    vapp.receiver.process_packed(chunks[0])
+    compared = vss.verify_graph(chunks[1])
+    torch.cuda.synchronize()
+    k2 = _k2_on_superstep_blocks(card, vapp, chunks[2:])
+    # the replay's time alone, on the last block's input
+    ms_replay = cuda_ms(vss._graph.replay, 5)
+    ms_eager = cuda_ms(vss._step, 2)
+    say(card, 'superstep graph', tensors_bit_equal=compared,
+        replay_ms_per_block=ms_replay, eager_ms_per_block=ms_eager,
+        block_s=plan.wb_chunk / fs)
+
+    # one eager and one graph pass under the profiler: K2's kernel events
+    # are its launches on the device, one per block on either path
+    for name, prep in (('eager', eager), ('graph', engaged)):
+        prof = _profiler()
+        _, wall_p, _, _ = _superstep_pass(argv, dev, emit_by_chan, prof,
+                                          prepare=prep)
+        ess = engines[-1]
+        blocks = ess.blocks_done
+        dp = device_profile(prof, wall_p)
+        if _k2_events(dp) != blocks or \
+                ess.replays != (blocks - 1 if name == 'graph' else 0):
+            raise AssertionError(
+                f'superstep {name} pass: {_k2_events(dp)} K2 kernel events '
+                f'in {blocks} blocks, {ess.replays} replays')
+        say(card, f'superstep profile {name}', wall_s=wall_p,
+            rt_factor=duration / wall_p, blocks=blocks,
+            graph_replays=ess.replays, k2_kernel_events=_k2_events(dp),
+            k2_launches_per_block=_k2_events(dp) / blocks,
+            device_events_per_block=dp['device_events'] / blocks, **dp)
+    k2['kernel_events_graph_pass'] = _k2_events(dp)
+    k2['graph_replays'] = ess.replays
+
+    # the cause of the alias junk: the same emissions under noise that
+    # covers the images (about 30 dB in a channel's band) decode with no
+    # junk at all, through the same graph path
+    ncap = _bench_capture(nch, fs, 'superstep_noisy.cs16', pad_symbols=3488,
+                          emitters=nch // 32, snr_db=NOISY_SNR_DB)
+    if ncap[3] != emit_by_chan:
+        raise AssertionError('noisy capture: other emissions')
+    _, wall_n, led_n, _ = _scale_pass(
+        _argv(ncap[0], fs, center, freqs, block, 'superstep_noisy.txt'), dev,
+        emit_by_chan, prepare=engaged)
+    say(card, 'superstep noisy', snr_db=NOISY_SNR_DB,
+        in_band_snr_db=NOISY_SNR_DB
+        + 20 * float(np.log10(fs // C.INTERNAL_RATE)),
+        wall_s=wall_n, **led_n)
+
+    # the live paths on the same capture: complex64 chunks of 65536
+    # samples through run_stream, raw CS16 buffers through run_stream_raw;
+    # each ends with the receiver's flush, as a file run does
+    raw = path.read_bytes()
+
+    def stream(app, args):
+        x = formats.convert(raw, 'CS16')
+        app.run_stream(x[o:o + 65_536] for o in range(0, len(x), 65_536))
+        app.handle_events(app.receiver.flush())
+
+    def stream_raw(app, args):
+        n = 65_536 * 4
+        app.run_stream_raw((raw[o:o + n] for o in range(0, len(raw), n)),
+                           'CS16')
+        app.handle_events(app.receiver.flush())
+
+    for name, drive in (('run_stream', stream),
+                        ('run_stream_raw', stream_raw)):
+        _, wall_s, led_s, sapp = _superstep_pass(argv, dev, emit_by_chan,
+                                                 prepare=engaged, drive=drive)
+        if sapp.last_ingest_overruns or engines[-1].replays < n_capture - 1:
+            raise AssertionError(
+                f'{name}: {sapp.last_ingest_overruns} samples overrun, '
+                f'{engines[-1].replays} replays')
+        say(card, f'stream {name}', wall_s=wall_s,
+            rt_factor=duration / wall_s, overruns=0,
+            blocks=engines[-1].blocks_done, **led_s)
+    return launches, k2
+
+
+def phase_datadumps(card: str, dev: torch.device) -> int:
+    """The golden capture through the CLI with --datadumps, in a scratch
+    directory: nine stages per channel, whole blocks each, the pinned
+    bytes, and the taps instantiation of K2 on the path."""
+    import shutil
+    from dumphfdl_tpu_torch import cli
+    from dumphfdl_tpu_torch.dsp import dumpfile, tracker_cuda
+    gold = ROOT / 'tests' / 'golden'
+    man = json.loads((gold / 'manifest.json').read_text())
+    out = WORK / 'dumps'
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rec = _Recorder()
+    cwd = os.getcwd()
+    tracker_cuda.taps_launches = 0
+    normal_before = tracker_cuda.launches
+    try:
+        os.chdir(out)
+        rc = cli.main([
+            '--iq-file', str(gold / man['capture']),
+            '--sample-format', man['format'],
+            '--sample-rate', str(man['sample_rate']),
+            '--centerfreq', str(man['centerfreq'] / 1000), '--datadumps',
+            '--output', f'decoded:text:file:path={out / "golden.txt"}',
+        ] + [str(f / 1000) for f in man['frequencies']], device=dev)
+    finally:
+        os.chdir(cwd)
+        rec.close()
+    launches = tracker_cuda.taps_launches
+    if rc != 0 or launches < 1 or tracker_cuda.launches != normal_before:
+        raise AssertionError(f'datadumps: rc {rc}, {launches} taps launches, '
+                             f'{tracker_cuda.launches - normal_before} '
+                             'normal ones')
+    got = {(e.channel, e.mode): e.pdu.hex() for e in rec.events if e.pdu}
+    for exp in man['frames']:
+        if got.get((exp['channel'], exp['mode'])) != exp['pdu_hex']:
+            raise AssertionError(f'datadumps: golden frame {exp["channel"]}/'
+                                 f'{exp["mode"]} missing or wrong')
+    real = ('agc_level', 'costas_dphi', 'costas_err', 'symsync_tau')
+    counts = {}
+    for stage in dumpfile.STAGES:
+        per_sample = stage in ('chan_out', 'agc_out', 'agc_level', 'mf_out')
+        for ch in range(len(man['frequencies'])):
+            ext, size = ('rf32', 4) if stage in real else ('cf32', 8)
+            f = out / f'{stage}.ch{ch}.{ext}'
+            n = f.stat().st_size // size if f.exists() else 0
+            want = launches * (5400 if per_sample else 1800)
+            if n != want:
+                raise AssertionError(f'datadumps: {f.name} holds {n} '
+                                     f'samples, expected {want}')
+            counts[stage] = n
+    if len(counts) != 9:
+        raise AssertionError('datadumps: not nine stages')
+    say(card, 'datadumps', files=9 * len(man['frequencies']),
+        samples_per_channel=counts, taps_launches=launches,
+        pdu_bytes_match=True)
     return launches
 
 
@@ -570,13 +1066,34 @@ def main() -> int:
     k1 = phase_k1(card, dev)
     k2 = phase_k2(card, dev)
     phase_golden(card, dev)
-    launches = phase_scale(card, dev)
+    with _shared_design():
+        launches, cap = phase_scale(card, dev)
+        taps = phase_k2_taps(card, dev)
+        phase_unfused(card, dev, cap)
+    with _shared_design():
+        ss_launches, k2_ss = phase_superstep(card, dev)
+    taps['launches'] = phase_datadumps(card, dev)
+    # launches: each wrapper's count from 0 over a path's first pass.  K1 and
+    # K2 on the scale phase's fused path (and, launches_superstep, on the
+    # superstep path), K2 at the superstep's shape on the superstep path
+    # (the eager first block and the one recorded into the graph; its
+    # replays and the kernel events of the profiled graph pass beside it),
+    # the taps instantiation on the --datadumps path
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
+    k2_ss['launches'] = ss_launches['tracker']
+    for d, name in ((k1, 'viterbi27'), (k2, 'tracker'),
+                    (k2_ss, 'tracker'), (taps, 'tracker_taps')):
+        d['launches_superstep'] = ss_launches[name]
+    if not all(d['launches'] > 0 for d in (k1, k2, k2_ss, taps)) \
+            or not k1['launches_superstep']:
+        raise AssertionError('a kernel of a path was never launched there')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'bound_bytes', 'bound_ops', 'chain_steps')
+            'bound_bytes', 'bound_ops', 'chain_steps', 'launches_superstep')
     print(card)
-    print(json.dumps({'kernels': [{k: d[k] for k in keys} for d in (k1, k2)]}))
+    print(json.dumps({'kernels': [
+        {k: d[k] for k in (*keys, *sorted(set(d) - set(keys)))}
+        for d in (k1, k2, k2_ss, taps)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

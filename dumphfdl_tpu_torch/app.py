@@ -1,8 +1,9 @@
 """Application orchestration: input -> receiver -> protocol -> outputs.
 
-Counterpart of ``dumphfdl_tpu/app.py`` for the offline file path
-(``run_file``); the protocol stack, formatters and outputs are the JAX
-package's host modules, which import no jax.
+Counterpart of ``dumphfdl_tpu/app.py``: the offline file path
+(``run_file``) and the live paths (``run_stream`` for complex chunks,
+``run_stream_raw`` for buffers in the SDR's native width), each through
+the superstep when the receiver engaged it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import sys
 import threading
 import time as time_mod
 
+import numpy as np
 import torch
 
 from . import constants as C
@@ -40,8 +42,12 @@ class AppConfig:
     output_queue_hwm: int = 1000
     nf_stats_interval: int = 10
     mesh: str | None = None             # multi-device mesh: not ported
-    # demod block length in 5400-sps samples (<= 16200)
+    # demod block length in 5400-sps samples (<= 16200): longer blocks
+    # amortize the per-block dispatch at the cost of event latency
     demod_block_len: int = 5400
+    # live-stream ingest chunk (wideband samples per upload); None = about
+    # fs/8 (~0.2 s, low latency)
+    stream_chunk_samples: int | None = None
 
 
 def compute_centerfreq(frequencies: list[int], sample_rate: int,
@@ -73,10 +79,12 @@ class HfdlApp:
         self.centerfreq = centerfreq + cfg.freq_offset
         self.receiver = WidebandReceiver(cfg.sample_rate, self.centerfreq,
                                          list(cfg.frequencies), cfg.device,
-                                         block_len=cfg.demod_block_len)
+                                         block_len=cfg.demod_block_len,
+                                         sample_format=cfg.sample_format)
         self.stream_epoch = time_mod.time()
         self.frames_decoded = 0     # FCS-valid frames parsed
         self.frames_junk = 0        # FCS-fail frames (false locks/errors)
+        self.last_ingest_overruns = 0   # samples a live run dropped
         self._stop = threading.Event()
         self._nf_thread = None
 
@@ -84,7 +92,11 @@ class HfdlApp:
 
     def _metadata_for(self, ev: FrameEvent) -> PduMetadata:
         p = C.MODES[ev.mode]
-        ts = self.stream_epoch + max(ev.start_symbol, 0) / C.SYMBOL_RATE
+        # the superstep's one-block resampler delay shifts the tracker's
+        # symbol clock relative to the stream epoch
+        ss = self.receiver.engine
+        off = ss.delay_symbols if ss is not None else 0
+        ts = self.stream_epoch + max(ev.start_symbol - off, 0) / C.SYMBOL_RATE
         return PduMetadata(
             freq=self.cfg.frequencies[ev.channel],
             freq_err_hz=ev.freq_err_hz,
@@ -149,13 +161,26 @@ class HfdlApp:
 
     def run_file(self, path: str, sample_format: str | None = None) -> int:
         """Offline decode of a raw I/Q file ('-' = stdin, input-file.c).
-        A background thread reads, converts and uploads one chunk ahead
-        of the device work (io/ingest.py)."""
+        A background thread reads and uploads ahead of the device work
+        (io/ingest.py); the integer formats upload in their native width
+        and convert on the device."""
         from .io import ingest
         fmt = (sample_format or self.cfg.sample_format).upper()
         fh = sys.stdin.buffer if path == '-' else open(path, 'rb')
         self._start_nf_stats()
         try:
+            if self._superstep_for(fmt) is not None:
+                # one graph replay per super-block: fixed-size raw chunks,
+                # native-width upload, conversion inside the step
+                raw_iter = ingest.file_chunks(
+                    fh, fmt, self.receiver.raw_chunk_bytes,
+                    stop=self._stop, pad_final=True)
+                for pk in ingest.superstep_stream(self.receiver, raw_iter):
+                    if self._stop.is_set():
+                        break
+                    self.handle_events(self.receiver.process_packed(pk))
+                self.handle_events(self.receiver.flush())
+                return 0
             raw_iter = ingest.file_chunks(fh, fmt, self.cfg.read_buffer_size,
                                           stop=self._stop)
             for xd in ingest.uploaded_stream(raw_iter, fmt, self.cfg.device):
@@ -166,6 +191,115 @@ class HfdlApp:
         finally:
             if path != '-':
                 fh.close()
+            self._stop.set()
+        return 0
+
+    def _superstep_for(self, *formats: str):
+        """The receiver's superstep engine when it is engaged for one of
+        these input formats and no dumps are wanted, else None."""
+        ss = self.receiver.engine
+        return ss if ss is not None and ss.input_kind in formats else None
+
+    def _report_overruns(self, dropped: int) -> None:
+        print(f'input: ring overrun, {dropped} samples dropped',
+              file=sys.stderr)
+        if self.statsd is not None:
+            self.statsd.increment('input.overruns', dropped)
+
+    def run_stream(self, sample_iter, packed: bool = False) -> int:
+        """Decode an iterator of complex64 chunks (live sources).
+
+        A reader thread drains the source into the lock-free SampleRing,
+        fixed blocks are uploaded one step ahead of the device work, and
+        ring overruns are counted like the reference's
+        complex_samples_produce (input-helpers.c:80-92).  packed=True
+        uploads at CS16 precision (half the bytes; for SDR sources whose
+        native format is integer anyway)."""
+        from .io import formats, ingest
+        self._start_nf_stats()
+        ss = self._superstep_for('CF32', 'CS16')
+        if ss is not None:
+            block = ss.plan.wb_chunk    # the super-block cadence
+        else:
+            block = self.cfg.stream_chunk_samples or max(
+                32768, 1 << int(math.ceil(math.log2(
+                    max(self.cfg.sample_rate // 8, 1)))))
+        src = ingest.StreamIngest(sample_iter, block,
+                                  ring_capacity=4 * block, stop=self._stop)
+        if ss is None:
+            stream = ingest.uploaded_stream(src.blocks(), 'CF32',
+                                            self.cfg.device, packed=packed)
+            step = self.receiver.process
+        else:
+            if ss.input_kind == 'CS16':
+                # quantize to CS16 on the ingest thread: half the bytes
+                raw_iter = (np.frombuffer(formats.serialize(b, 'CS16'),
+                                          np.uint8) for b in src.blocks())
+            else:
+                raw_iter = (b.view(np.uint8) for b in src.blocks())
+            stream = ingest.superstep_stream(self.receiver, raw_iter)
+            step = self.receiver.process_packed
+        last_over = 0
+        try:
+            for xd in stream:
+                if self._stop.is_set():
+                    break
+                self.handle_events(step(xd))
+                over = src.overruns
+                if over != last_over:
+                    self._report_overruns(over - last_over)
+                    last_over = over
+        finally:
+            self.last_ingest_overruns = src.overruns
+            src.stop()
+            self._stop.set()
+        return 0
+
+    def run_stream_raw(self, raw_iter, sample_format: str | None = None
+                       ) -> int:
+        """Decode an iterator of raw sample buffers in the SDR's native
+        width (bytes / uint8 arrays; CS16 = 4 bytes per sample).
+
+        The high-rate live path: no float conversion on the host.  Raw
+        bytes ride the SampleRing in 8-byte slots (viewed as complex64 for
+        storage only), are re-chunked to the superstep cadence, and
+        convert on the device inside the step.  Without a superstep for
+        this format the buffers are converted on the host and take
+        run_stream."""
+        from .io import formats, ingest
+        fmt = (sample_format or self.cfg.sample_format).upper()
+        if self._superstep_for(fmt) is None:
+            return self.run_stream(
+                formats.convert(raw, fmt) for raw in raw_iter)
+        self._start_nf_stats()
+        chunk_bytes = self.receiver.raw_chunk_bytes
+        assert chunk_bytes % 8 == 0
+        slots = chunk_bytes // 8          # 8-byte ring slots
+        bps = formats.bytes_per_sample(fmt)
+
+        def as_slots(raw):
+            b = np.frombuffer(raw, np.uint8) if isinstance(
+                raw, (bytes, bytearray, memoryview)) else \
+                np.asarray(raw, np.uint8)
+            return b[:len(b) - len(b) % 8].view(np.complex64)
+
+        src = ingest.StreamIngest((as_slots(r) for r in raw_iter), slots,
+                                  ring_capacity=4 * slots, stop=self._stop)
+        stream = ingest.superstep_stream(
+            self.receiver, (b.view(np.uint8) for b in src.blocks()))
+        last_over = 0
+        try:
+            for pk in stream:
+                if self._stop.is_set():
+                    break
+                self.handle_events(self.receiver.process_packed(pk))
+                over = src.overruns
+                if over != last_over:
+                    self._report_overruns((over - last_over) * 8 // bps)
+                    last_over = over
+        finally:
+            self.last_ingest_overruns = src.overruns * 8 // bps
+            src.stop()
             self._stop.set()
         return 0
 

@@ -1,12 +1,17 @@
 """Command-line interface of the PyTorch port.
 
 Same flag surface as ``dumphfdl_tpu/cli.py`` (which mirrors the reference
-decoder, main.c:378-425).  Offline file decode is ported; --soapysdr,
---mesh, --profile and --datadumps raise a "not yet ported" error.  The
+decoder, main.c:378-425).  File, stdin and SoapySDR input and --datadumps
+are ported; --mesh and --profile raise a "not yet ported" error.  The
 decoder runs on the CUDA device and refuses to start without one.
 
     python -m dumphfdl_tpu_torch.cli --iq-file CAPTURE --sample-format CS16 \
         --sample-rate 48000 --centerfreq 8930 8912 8942
+
+The sample rate and --demod-block choose the path (dsp/receiver.py): the
+superstep (one CUDA graph per block) where the rate aligns and the block is
+at least the aligned one, else the fused step where the block is a whole
+number of resampler cosets, else the unfused path.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import sys
 
 import torch
 
-from .io.outputs import OutputManager, OutputSpec
+from .io.outputs import OutputManager, OutputSpec, parse_kvargs
 from .protocol.enrichment import AcCache, AcData, SysTable
 from .protocol.runtime import ProtocolContext, ProtocolOptions
 from .utils.statsd import StatsdClient
@@ -25,7 +30,7 @@ from . import __version__
 from .app import AppConfig, HfdlApp
 from .device import require_cuda
 
-_NOT_PORTED = ('soapysdr', 'mesh', 'profile', 'datadumps')
+_NOT_PORTED = ('mesh', 'profile')
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument('--iq-file', metavar='FILE',
                      help="read I/Q samples from file ('-' = stdin)")
     src.add_argument('--soapysdr', metavar='DEVICE',
-                     help='use a SoapySDR device (not yet ported)')
+                     help='use a SoapySDR device (e.g. driver=rtlsdr)')
     src.add_argument('--sample-format', choices=['CU8', 'CS16', 'CF32'],
                      type=str.upper, help='input sample format')
     src.add_argument('--sample-rate', type=int, help='sampling rate in Hz')
@@ -62,9 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help='accepted for compatibility (cuFFT manages threads)')
     src.add_argument('--demod-block', type=int, default=5400,
                      metavar='SAMPLES',
-                     help='demod block length in 5400-sps samples '
-                          '(max 16200; the fused resampler needs a '
-                          'multiple of 3 x its ratio denominator)')
+                     help='demod block length in 5400-sps samples, a '
+                          'multiple of 3 (max 16200): larger blocks '
+                          'amortize per-block dispatch at the cost of '
+                          'event latency, and engage the superstep where '
+                          'the sample rate aligns')
     src.add_argument('--mesh', metavar='TIMExCHAN', default=None,
                      help='multi-device mesh (not yet ported)')
 
@@ -113,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
                      help='enable debug logging classes (sdr,dsp,frame,'
                           'proto,stats,cache,output,misc,all)')
     obs.add_argument('--datadumps', action='store_true',
-                     help='dump per-stage DSP signals (not yet ported)')
+                     help='dump per-stage DSP signals to raw files in the '
+                          'current directory (takes the unfused path)')
     obs.add_argument('--profile', metavar='DIR',
                      help='record a profiler trace (not yet ported)')
 
@@ -179,6 +187,9 @@ def build_app(args, device: torch.device) -> HfdlApp:
     if args.debug:
         from .utils import debug
         debug.set_classes(args.debug)
+    if args.datadumps:
+        from .dsp.dumpfile import DumpSet
+        app.receiver.bank.dumps = DumpSet()
     return app
 
 
@@ -190,17 +201,38 @@ def main(argv: list[str] | None = None, device=None) -> int:
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f'error: --{flag} is not yet ported to '
                              'dumphfdl_tpu_torch')
-    if not args.iq_file:
-        raise SystemExit('error: no input selected (--iq-file)')
-    if not args.sample_format:
+    if not args.iq_file and args.soapysdr is None:
+        raise SystemExit('error: no input selected (--iq-file / --soapysdr)')
+    if args.iq_file and not args.sample_format:
         raise SystemExit('error: --sample-format is required with --iq-file')
     device = require_cuda() if device is None else torch.device(device)
     app = build_app(args, device)
     signal.signal(signal.SIGINT, lambda *_: app.stop())
     signal.signal(signal.SIGTERM, lambda *_: app.stop())
     try:
-        rc = app.run_file(args.iq_file, args.sample_format)
+        if args.iq_file:
+            rc = app.run_file(args.iq_file, args.sample_format)
+        else:
+            from .io.soapy_input import SoapyInput
+            src = SoapyInput(
+                device=args.soapysdr,
+                sample_rate=args.sample_rate,
+                centerfreq=app.centerfreq,
+                gain=args.gain,
+                gain_elements=parse_kvargs(args.gain_elements or ''),
+                freq_correction=args.freq_correction,
+                antenna=args.antenna,
+                device_settings=parse_kvargs(args.device_settings or ''),
+                sample_format=args.sample_format,
+            )
+            src.connect()
+            # integer-native sources lose nothing to the CS16-quantized
+            # upload (half the transfer bytes)
+            rc = app.run_stream(src.stream(), packed=src.is_integer_format)
     finally:
+        dumps = app.receiver.bank.dumps
+        if dumps is not None:
+            dumps.close()
         app.shutdown()
     print(f'{app.frames_decoded} frames decoded', file=sys.stderr)
     return rc

@@ -140,21 +140,47 @@ _GATHER_BATCH_MIN = 32      # smallest padded gather batch
 _GATHER_BATCH_MAX = 2048    # largest single dispatch
 
 
+def _ring_slide(ringmeta: tuple[int, int], t: int) -> tuple[int, int, int]:
+    """Where a block of t symbols goes: (shift, wcur, base22) host ints.
+    When the block would pass the ring end, the last RING_KEEP symbols
+    slide to the front by `shift` first (0 = no slide)."""
+    wcur, base22 = ringmeta
+    if wcur + t > RING_T:
+        shift = wcur - RING_KEEP
+        return shift, RING_KEEP, (base22 + shift) & ((1 << 22) - 1)
+    return 0, wcur, base22
+
+
 def _ring_update(symring: torch.Tensor, ringmeta: tuple[int, int],
                  sym_tc: torch.Tensor) -> tuple[int, int]:
     """Append one block of symbols ((C, T) channel-major) to symring in
-    place at the write cursor; ringmeta = (wcur, base22) host ints.  When
-    the block would pass the ring end the kept history slides to the
-    front first.  Returns the new (wcur, base22)."""
-    wcur, base22 = ringmeta
+    place at the write cursor; ringmeta = (wcur, base22) host ints.
+    Returns the new (wcur, base22)."""
     t = sym_tc.shape[1]
-    if wcur + t > RING_T:
-        shift = wcur - RING_KEEP
-        symring[:, :RING_KEEP] = symring[:, shift:wcur].clone()
-        base22 = (base22 + shift) & ((1 << 22) - 1)
-        wcur = RING_KEEP
+    shift, wcur, base22 = _ring_slide(ringmeta, t)
+    if shift:
+        symring[:, :RING_KEEP] = symring[:, shift:shift + RING_KEEP].clone()
     symring[:, wcur:wcur + t] = sym_tc
     return wcur + t, base22
+
+
+def _ring_update_device(symring: torch.Tensor, meta: torch.Tensor,
+                        sym_tc: torch.Tensor) -> None:
+    """_ring_update with the cursor on the device: meta = [wcur, base22]
+    int64, updated in place like symring.  Every block does the same work
+    (a slide by 0 copies the front onto itself), so the step holds no
+    host-side branch and can be captured in a CUDA graph; the host mirrors
+    the cursor with _ring_slide."""
+    t = sym_tc.shape[1]
+    wcur, base22 = meta[0], meta[1]
+    do_c = wcur + t > RING_T
+    shift = torch.where(do_c, wcur - RING_KEEP, 0)
+    keep = torch.arange(RING_KEEP, device=symring.device)
+    symring[:, :RING_KEEP] = torch.index_select(symring, 1, shift + keep)
+    wcur = torch.where(do_c, RING_KEEP, wcur)
+    symring.index_copy_(
+        1, wcur + torch.arange(t, device=symring.device), sym_tc)
+    meta.copy_(torch.stack([wcur + t, (base22 + shift) & ((1 << 22) - 1)]))
 
 
 def _resample_ring(fs1_ring: torch.Tensor, bank: np.ndarray,
@@ -206,17 +232,22 @@ def _rs_advance(rs_state: tuple[int, int, int], rs_const: tuple,
 def channel_step(agc_state: AgcState, tracker_state: TrackerState,
                  symring: torch.Tensor, ringmeta: tuple[int, int],
                  tail: torch.Tensor, lvl_tail: torch.Tensor,
-                 x: torch.Tensor, num_steps: int):
+                 x: torch.Tensor, num_steps: int, debug_taps: bool = False):
     """One demod block of (C, T) samples at 5400 sps: AGC -> MF -> tracker
-    -> ring append (symring in place).  Returns (agc_state, tracker_state,
-    ringmeta, tail, lvl_tail, outs, ev_table, counters)."""
+    -> ring append (symring in place).  ringmeta is the ring cursor: host
+    ints (wcur, base22), or the device form of _ring_update_device, which
+    is updated in place.  Returns (agc_state, tracker_state, ringmeta,
+    tail, lvl_tail, outs, ev_table, counters)."""
     agc_state, y, level = agc_block(agc_state, x)
     mf = matched_filter(y)
     mf_ext = torch.cat([tail, mf], dim=1)
     lvl_ext = torch.cat([lvl_tail, level], dim=1)
     tracker_state, outs, ev_table, counters = tracker_cuda.tracker_block(
-        tracker_state, mf_ext, lvl_ext, num_steps)
-    ringmeta = _ring_update(symring, ringmeta, outs.sym.T)
+        tracker_state, mf_ext, lvl_ext, num_steps, debug_taps=debug_taps)
+    if isinstance(ringmeta, torch.Tensor):
+        _ring_update_device(symring, ringmeta, outs.sym.T)
+    else:
+        ringmeta = _ring_update(symring, ringmeta, outs.sym.T)
     return (agc_state, tracker_state, ringmeta, mf_ext[:, -HALO:],
             lvl_ext[:, -HALO:], outs, ev_table, counters)
 
@@ -278,6 +309,7 @@ class ChannelBank:
     _ringmeta: tuple = (0, 0)         # (write cursor, base row mod 2^22)
     _tail: torch.Tensor = None        # (C, HALO) carried MF output
     _lvl_tail: torch.Tensor = None
+    dumps: object = None              # dumpfile.DumpSet for --datadumps
 
     def __post_init__(self):
         c = self._c = self.num_channels
@@ -307,10 +339,27 @@ class ChannelBank:
         x = torch.as_tensor(samples, dtype=torch.complex64, device=self.device)
         num_steps = int(x.shape[1] // C.SPS)
         self._check_block_invariant(num_steps)
+        host = lambda t: t.cpu().numpy()
+        if self.dumps is not None:       # --datadumps: the stages' signals
+            self.dumps.write('chan_out', host(x))
+            _, y_dbg, lvl_dbg = agc_block(self.agc_state, x)
+            self.dumps.write('agc_out', host(y_dbg))
+            self.dumps.write('agc_level', host(lvl_dbg))
+            self.dumps.write('mf_out', host(matched_filter(y_dbg)))
         (self.agc_state, self.tracker_state, self._ringmeta, self._tail,
-         self._lvl_tail, _outs, ev_table, counters) = channel_step(
+         self._lvl_tail, outs, ev_table, counters) = channel_step(
             self.agc_state, self.tracker_state, self.symring,
-            self._ringmeta, self._tail, self._lvl_tail, x, num_steps)
+            self._ringmeta, self._tail, self._lvl_tail, x, num_steps,
+            self.dumps is not None)
+        if self.dumps is not None:       # and the tracker's loop internals
+            sym = host(outs.sym).T                # (C, T_out)
+            self.dumps.write('sym_out', sym)
+            self.dumps.write('const', np.where(host(outs.is_data).T, sym,
+                                               np.nan + 0j))
+            taps = host(outs.taps)                # (T_out, C, 3)
+            self.dumps.write('costas_dphi', taps[:, :, 0].T)
+            self.dumps.write('costas_err', taps[:, :, 1].T)
+            self.dumps.write('symsync_tau', taps[:, :, 2].T)
         return self._finish_step(ev_table, counters)
 
     def process_fused(self, chan) -> list[FrameEvent]:

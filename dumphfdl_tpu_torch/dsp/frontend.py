@@ -9,7 +9,11 @@ are copied; the streaming path runs on torch tensors:
 * per channel a bin-window gather times the pre-shifted kernel window,
   an image fold and one batched inverse FFT of fft_inv_size;
 * scrap of the overlap and the residual mixer, appended to the modular
-  fs1 ring the fused demod step resamples from (dsp/channel.py).
+  fs1 ring the fused demod step resamples from (dsp/channel.py);
+* for geometries the fused step cannot take (and for --datadumps), the
+  unfused path: ``process_device`` drains the fs1 ring through the
+  gather-interpolate resampler ``_resample`` into (rows, out_chunk) blocks
+  at 5400 sps for ``ChannelBank.process``.
 
 Ring cursors are host integers (the JAX package carries them on device
 and mirrors them on the host; here the host copy is the only one).
@@ -137,10 +141,72 @@ def _resampler_bank(ratio_x1000: int, ntaps: int, nphases: int = 64) -> np.ndarr
     return bank
 
 
+def _design_tables(geo: DdcGeometry, fs: int, centerfreq: int,
+                   frequencies: tuple, rows: int):
+    """The channel filters' tables for one deployment: (coarse bins
+    (rows,), residual mixer rates (rows,) f64, window image count, bin
+    window indices (rows, W) i32, kernel window (rows, W) c64).  Host numpy
+    and scipy work that grows with channels x fft_size (tens of seconds at
+    1024 channels); every Channelizer designs its own."""
+    plans = [plan_channel(geo, fs, centerfreq, f) for f in frequencies]
+    num_channels = len(plans)
+    decimation = geo.decimation
+    # every channel shares one lowpass prototype, only the spectral shift
+    # differs; built in row chunks so the full (rows, fft_size) matrix is
+    # never materialized
+    hbw = 0.5 / decimation
+    proto = firdes_lowpass(geo.taps_length, hbw)
+    centers = -np.asarray([p.shift_rate for p in plans], np.float64)
+    n_t = np.arange(geo.taps_length)
+    coarse = np.zeros(rows, np.int32)
+    coarse[:num_channels] = [p.coarse_bins for p in plans]
+    residual64 = np.zeros(rows, np.float64)
+    residual64[:num_channels] = [p.residual_cycles for p in plans]
+
+    try:
+        from scipy import fft as _sfft
+        _fft_rows = lambda a: _sfft.fft(a, n=geo.fft_size, axis=1)
+    except ImportError:                     # pragma: no cover
+        _fft_rows = lambda a: np.fft.fft(a, n=geo.fft_size, axis=1) \
+            .astype(np.complex64)
+
+    def _taps_chunk(i, j):
+        return (proto[None, :]
+                * np.exp(2j * np.pi * centers[i:j, None] * n_t[None, :])
+                ).astype(np.complex64)
+
+    chunk = max(1, min(num_channels, (64 << 20) // (8 * geo.fft_size)))
+    L = geo.fft_inv_size
+    n = geo.fft_size
+    # smallest even image count whose centred window holds every bin of
+    # every channel's kernel FFT above 1e-4 of the peak
+    threshold = 1e-4
+    w_need = 2
+    for i in range(0, num_channels, chunk):
+        f = _fft_rows(_taps_chunk(i, i + chunk))
+        mags = np.abs(f)
+        over = mags > threshold * mags.max()
+        rows_i, bins = np.nonzero(over)
+        rel = (bins - coarse[i + rows_i] + n // 2) % n - n // 2
+        half = max(int(np.max(rel)) + 1, int(-np.min(rel)))
+        w_need = max(w_need, 2 * -(-half // L))
+    w = max(2, min(w_need, decimation))
+    m = np.arange(w * L)
+    idx = (coarse[:, None] - (w // 2) * L + m[None, :]) % n
+    hwin = np.zeros((rows, w * L), np.complex64)
+    for i in range(0, num_channels, chunk):
+        f = _fft_rows(_taps_chunk(i, i + chunk))
+        hwin[i:i + chunk] = np.take_along_axis(
+            f, idx[i:i + f.shape[0]], axis=1).astype(np.complex64)
+    return coarse, residual64, w, idx.astype(np.int32), hwin
+
+
 class Channelizer:
-    """Streaming wideband -> per-channel converter feeding the fused demod
-    step: wideband ring -> overlap-save DDC -> fs1 ring, with the exact
-    rational resampler cursor handed to ChannelBank.process_fused."""
+    """Streaming wideband -> per-channel converter: wideband ring ->
+    overlap-save DDC -> fs1 ring.  The fused demod step resamples straight
+    from that ring (the exact rational cursor goes to
+    ChannelBank.process_fused); process_device resamples here and returns
+    5400-sps blocks."""
 
     def __init__(self, sample_rate: int, centerfreq: int,
                  frequencies: list[int], device,
@@ -160,55 +226,12 @@ class Channelizer:
         assert self.rows >= self.num_channels
         self.out_chunk = out_chunk
 
+        self._coarse, residual64, self.window_images, idx, hwin = \
+            _design_tables(self.geo, self.fs, self.centerfreq,
+                           tuple(frequencies), self.rows)
         geo = self.geo
-        # Filter kernels: every channel shares one lowpass prototype, only
-        # the spectral shift differs; built in row chunks so the full
-        # (rows, fft_size) matrix is never materialized.
-        hbw = 0.5 / decimation
-        proto = firdes_lowpass(geo.taps_length, hbw)
-        centers = -np.asarray([p.shift_rate for p in self.plans], np.float64)
-        n_t = np.arange(geo.taps_length)
-        self._coarse = np.zeros(self.rows, np.int32)
-        self._coarse[:self.num_channels] = [p.coarse_bins for p in self.plans]
-        residual64 = np.zeros(self.rows, np.float64)
-        residual64[:self.num_channels] = [p.residual_cycles for p in self.plans]
-
-        try:
-            from scipy import fft as _sfft
-            _fft_rows = lambda a: _sfft.fft(a, n=geo.fft_size, axis=1)
-        except ImportError:                     # pragma: no cover
-            _fft_rows = lambda a: np.fft.fft(a, n=geo.fft_size, axis=1) \
-                .astype(np.complex64)
-
-        def _taps_chunk(i, j):
-            return (proto[None, :]
-                    * np.exp(2j * np.pi * centers[i:j, None] * n_t[None, :])
-                    ).astype(np.complex64)
-
-        chunk = max(1, min(self.num_channels, (64 << 20) // (8 * geo.fft_size)))
-        L = geo.fft_inv_size
-        n = geo.fft_size
-        # smallest even image count whose centred window holds every bin of
-        # every channel's kernel FFT above 1e-4 of the peak
-        threshold = 1e-4
-        w_need = 2
-        for i in range(0, self.num_channels, chunk):
-            f = _fft_rows(_taps_chunk(i, i + chunk))
-            mags = np.abs(f)
-            over = mags > threshold * mags.max()
-            rows_i, bins = np.nonzero(over)
-            rel = (bins - self._coarse[i + rows_i] + n // 2) % n - n // 2
-            half = max(int(np.max(rel)) + 1, int(-np.min(rel)))
-            w_need = max(w_need, 2 * -(-half // L))
-        self.window_images = w = max(2, min(w_need, decimation))
-        m = np.arange(w * L)
-        idx = (self._coarse[:, None] - (w // 2) * L + m[None, :]) % n
-        hwin = np.zeros((self.rows, w * L), np.complex64)
-        for i in range(0, self.num_channels, chunk):
-            f = _fft_rows(_taps_chunk(i, i + chunk))
-            hwin[i:i + chunk] = np.take_along_axis(
-                f, idx[i:i + f.shape[0]], axis=1).astype(np.complex64)
-        self.tables_from_numpy(idx.astype(np.int32), hwin, residual64)
+        w, L = self.window_images, geo.fft_inv_size
+        self.tables_from_numpy(idx, hwin, residual64)
 
         # frame-batch cap: per-frame working set is the (B, rows, W)
         # gather + product plus the (B, N) frames/spectrum pair
@@ -240,6 +263,7 @@ class Channelizer:
         self._rs_taps = int(8 * max(1, int(np.ceil(self.ratio))))
         self._bank = _resampler_bank(int(round(self.ratio * 1000)),
                                      self._rs_taps)
+        self._bank_dev = None          # device copy, for _resample
         need = int(out_chunk * self.ratio) + self._rs_taps \
             + (self._max_frames + 2) * geo.post_input_size + 64
         self._r1 = 1 << int(np.ceil(np.log2(need)))
@@ -329,13 +353,124 @@ class Channelizer:
                   + torch.arange(geo.fft_size, device=dev)[None, :]) % self._rw
             out, self._mixer_phase = self.ddc_frames(self._wb_ring[fr],
                                                      self._mixer_phase)
-            cols = (self._fs1_wcur
-                    + torch.arange(n_out, device=dev)) % self._r1
-            self._fs1_ring[:, cols] = out
-            self._fs1_wcur = (self._fs1_wcur + n_out) % self._r1
+            self._append_fs1(out)
             self._wb_rcur = (self._wb_rcur + n_now * geo.input_size) % self._rw
             self._wb_fill -= n_now * geo.input_size
-            self._fs1_fill += n_out
+
+    def _append_fs1(self, chunk: torch.Tensor) -> None:
+        """Append an (rows, n) fs1 chunk to the modular fs1 ring."""
+        self._ensure_rings()
+        n = int(chunk.shape[1])
+        if self._fs1_fill + n > self._r1:
+            raise RuntimeError('fs1 ring overflow (consumer stalled)')
+        cols = (self._fs1_wcur
+                + torch.arange(n, device=self.device)) % self._r1
+        self._fs1_ring[:, cols] = chunk
+        self._fs1_wcur = (self._fs1_wcur + n) % self._r1
+        self._fs1_fill += n
+
+    def channelize_frames(self, frames, phase0: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Offline helper: channelize explicit (B, fft_size) overlap-save
+        frames (numpy or tensor) from mixer phase phase0 (zeros)."""
+        if phase0 is None:
+            phase0 = torch.zeros(self.rows, dtype=torch.float32,
+                                 device=self.device)
+        return self.ddc_frames(torch.as_tensor(
+            frames, dtype=torch.complex64, device=self.device), phase0)
+
+    # ---- unfused path: resample here, hand out 5400-sps blocks ----
+
+    def _resample(self, ring: torch.Tensor, params, n_out: int
+                  ) -> torch.Tensor:
+        """Gather-interpolate n_out samples from the fs1 ring.
+
+        params = (frac start, int start, ring read cursor) of the block's
+        first output, relative to the ring start.  Exact path (_rs_exact,
+        every practical SDR rate): the frac start is an integer numerator
+        over the reduced ratio's denominator and positions and phase bins
+        come out of integer arithmetic.  Fallback (rates whose reduced
+        ratio is huge): float32 positions, at worst one 1/64 phase-bin
+        flip near a bin boundary.  Positions are host numpy (they follow
+        from host integers); only two (n_out,) index vectors are uploaded.
+        The taps are summed in order, one (C, n_out) gather of the ring
+        per tap, so the (C, n_out, K) window tensor is never built."""
+        k = self._rs_taps
+        r1 = ring.shape[1]
+        if self._rs_exact:
+            a_fnum, a_int, rstart = (int(v) for v in params)
+            num, den = self._rs_num, self._rs_den
+            tot = a_fnum + np.arange(n_out, dtype=np.int64) * num
+            base = tot // den
+            frac = (tot - base * den).astype(np.float32) / np.float32(den)
+        else:
+            a_frac, a_int, rstart = np.float32(params[0]), int(params[1]), \
+                int(params[2])
+            pos = a_frac + np.arange(n_out, dtype=np.float32) \
+                * np.float32(self.ratio)
+            basef = np.floor(pos)
+            frac = pos - basef
+            base = basef.astype(np.int64)
+        rel = np.maximum(a_int + base - (k // 2 - 1), 0)
+        offsets = torch.as_tensor((rstart + rel) % r1, device=ring.device)
+        phases = torch.as_tensor(
+            np.round(frac * np.float32(64)).astype(np.int64),
+            device=ring.device)
+        if self._bank_dev is None:
+            self._bank_dev = torch.as_tensor(self._bank, device=self.device)
+        taps = self._bank_dev[phases]                          # (n_out, K)
+        acc = ring[:, offsets] * taps[None, :, 0]
+        for t in range(1, k):
+            acc = acc + ring[:, (offsets + t) % r1] * taps[None, :, t]
+        return acc
+
+    def _drain_resampler(self) -> list[torch.Tensor]:
+        """Emit as many out_chunk-sized resampled blocks as the fs1 ring
+        allows, advancing the host cursors."""
+        chunks: list[torch.Tensor] = []
+        k = self._rs_taps
+        while True:
+            avail = self._ring_global_start + self._fs1_fill
+            n0 = self._out_count
+            last_pos = (n0 + self.out_chunk - 1) * self.ratio
+            if int(np.floor(last_pos)) + k >= avail:
+                break
+            # a = fs1 position of output n0 relative to the ring start
+            if self._rs_exact:
+                a_num = n0 * self._rs_num \
+                    - self._ring_global_start * self._rs_den
+                a_int, a_fnum = divmod(a_num, self._rs_den)
+                params = (a_fnum, a_int, self._fs1_start)
+            else:
+                a = n0 * self.ratio - self._ring_global_start
+                a_int = int(np.floor(a))
+                params = (a - a_int, a_int, self._fs1_start)
+            chunks.append(self._resample(self._fs1_ring, params,
+                                         self.out_chunk))
+            self._out_count += self.out_chunk
+            # free consumed ring space (the ring is modular: move the cursor)
+            keep_from = int(np.floor(self._out_count * self.ratio)) - k
+            drop = max(0, keep_from - self._ring_global_start)
+            drop = min(drop, self._fs1_fill)
+            if drop:
+                self._fs1_start = (self._fs1_start + drop) % self._r1
+                self._fs1_fill -= drop
+                self._ring_global_start += drop
+        return chunks
+
+    def process_device(self, samples) -> list[torch.Tensor]:
+        """Feed wideband samples; returns (rows, out_chunk) blocks at 5400
+        sps on the device (>= 0 full chunks; the rest stays buffered)."""
+        self.ingest(samples)
+        self.channelize_available()
+        return self._drain_resampler()
+
+    def process(self, samples) -> np.ndarray:
+        """process_device + host materialization (offline/test use)."""
+        chunks = self.process_device(samples)
+        if not chunks:
+            return np.zeros((self.rows, 0), dtype=np.complex64)
+        return np.concatenate([c.cpu().numpy() for c in chunks], axis=1)
 
     @property
     def fused_ready(self) -> bool:

@@ -1,15 +1,23 @@
 """Wideband receiver: glue from raw wideband samples to decoded frames.
 
 Counterpart of ``dumphfdl_tpu/dsp/receiver.py``: a Channelizer
-(frontend.py) feeding one batched ChannelBank (channel.py) through the
-resample-fused demod step.  The superstep engine and the unfused
-channelize-then-resample path of the JAX package are not ported; a
-geometry the fused step cannot take raises.
+(frontend.py) feeding one batched ChannelBank (channel.py).  Which of the
+three paths a receiver takes follows from its sample rate and block
+length:
+
+* superstep (dsp/superstep.py): the rate's cadence aligns (plan_superstep)
+  and block_len is at least the aligned block -- one CUDA graph per
+  super-block, fed raw bytes through process_packed;
+* fused: the exact resampler cursor fits and block_len is a whole number of
+  its cosets -- the demod step resamples straight from the fs1 ring;
+* unfused: everything else, and any receiver with --datadumps on -- the
+  channelizer resamples into 5400-sps blocks for ChannelBank.process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -27,29 +35,67 @@ class WidebandReceiver:
     frequencies: list[int]          # Hz
     device: torch.device
     block_len: int = 5400           # 5400-sps samples per demod block
+    # format of the raw stream (what the superstep converts on the device)
+    sample_format: str = 'CF32'
 
     def __post_init__(self):
+        if self.block_len % C.SPS:
+            raise ValueError(f'demod block of {self.block_len} samples is '
+                             f'not a whole number of symbols ({C.SPS} '
+                             'samples each)')
         self.bank = ChannelBank(len(self.frequencies), self.device)
         self.channelizer = Channelizer(self.sample_rate, self.centerfreq,
                                        self.frequencies, self.device,
                                        out_chunk=self.block_len,
                                        rows=self.bank._c)
-        if not (self.channelizer.fused_ready and self.block_len % C.SPS == 0):
-            step = C.SPS * self.channelizer._rs_den \
-                // np.gcd(C.SPS, self.channelizer._rs_den)
-            raise ValueError(
-                f'demod block of {self.block_len} samples cannot run the '
-                f'fused resample step at {self.sample_rate} sps (it needs a '
-                f'multiple of {step}, e.g. {self.block_len // step * step}); '
-                'the unfused path is not ported')
+        self.sample_clock = 0       # wideband samples consumed
+        self.fused = self.channelizer.fused_ready
+        # the superstep engages when the geometry aligns and the caller's
+        # block length asks for throughput (>= the aligned block); shorter
+        # blocks keep the lower-latency fused path
+        self.superstep = None
+        if self.fused and os.environ.get('DUMPHFDL_NO_SUPERSTEP') != '1':
+            from .superstep import SuperstepEngine, plan_superstep
+            plan = plan_superstep(self.channelizer)
+            if plan is not None and self.block_len >= plan.out_chunk:
+                self.superstep = SuperstepEngine(
+                    self.channelizer, self.bank,
+                    input_kind=self.sample_format)
+
+    @property
+    def raw_chunk_bytes(self) -> int | None:
+        """Raw bytes per super-block when the superstep is engaged (the
+        ingest chunker delivers exactly this much, silence-padding the
+        last chunk), else None."""
+        return None if self.superstep is None \
+            else self.superstep.raw_chunk_bytes
+
+    @property
+    def engine(self):
+        """The superstep engine while this receiver runs on it: engaged,
+        and no --datadumps wanted (dumps take the unfused path from the
+        first sample to the end of the flush, so that frames in flight at
+        the end of the input complete and are dumped)."""
+        return self.superstep if self.bank.dumps is None else None
+
+    def process_packed(self, packed: torch.Tensor) -> list[FrameEvent]:
+        """Superstep path: one uploaded raw chunk (SuperstepEngine.upload)
+        in, the previous super-block's events out."""
+        self.sample_clock += self.superstep.plan.wb_chunk
+        return self.superstep.process_packed(packed)
 
     def process(self, wideband) -> list[FrameEvent]:
         """Feed wideband complex samples; returns completed frames."""
+        self.sample_clock += len(wideband)
         events: list[FrameEvent] = []
-        self.channelizer.ingest(wideband)
-        self.channelizer.channelize_available()
-        while self.channelizer.chunk_ready():
-            events.extend(self.bank.process_fused(self.channelizer))
+        if self.fused and self.bank.dumps is None:
+            self.channelizer.ingest(wideband)
+            self.channelizer.channelize_available()
+            while self.channelizer.chunk_ready():
+                events.extend(self.bank.process_fused(self.channelizer))
+            return events
+        for chunk in self.channelizer.process_device(wideband):
+            events.extend(self.bank.process(chunk))
         return events
 
     def flush(self) -> list[FrameEvent]:
@@ -59,10 +105,20 @@ class WidebandReceiver:
         pad_wb = int((C.DOUBLE_SLOT_FRAME_LEN + 200) * C.SPS
                      * self.sample_rate / C.INTERNAL_RATE) \
             + 4 * chz.geo.fft_size
+        events: list[FrameEvent] = []
+        ss = self.engine
+        if ss is not None:
+            from ..io.formats import silence_byte
+            zero = ss.upload(np.full(ss.raw_chunk_bytes,
+                                     silence_byte(ss.input_kind), np.uint8))
+            # +1 block for the superstep's one-block resampler delay
+            for _ in range(-(-pad_wb // ss.plan.wb_chunk) + 1):
+                events.extend(self.process_packed(zero))
+            events.extend(self.bank.drain_events())
+            return events
         step = min(self.sample_rate,
                    chz._rw - chz.geo.overlap_length - chz.geo.input_size)
         pad = torch.zeros(step, dtype=torch.complex64, device=self.device)
-        events: list[FrameEvent] = []
         for _ in range(-(-pad_wb // step)):
             events.extend(self.process(pad))
         events.extend(self.bank.drain_events())

@@ -136,6 +136,10 @@ class TrackerOutputs(NamedTuple):
     is_data: torch.Tensor        # bool
     data_idx: torch.Tensor       # i32 slot within frame
     frame_parity: torch.Tensor   # i32 frame_counter & 3
+    # per-symbol loop internals, present only from a debug_taps block (the
+    # --datadumps taps): Costas frequency, clamped phase error, timing
+    # fraction
+    taps: torch.Tensor = None    # (T, C, 3) f32 | None
 
 
 _F32_FIELDS = ('tau', 'rate', 'phi', 'dphi', 'freq_err', 'signal_level',
@@ -381,7 +385,8 @@ def _tables(device) -> dict:
     )
 
 
-def _run_loop(st: TrackerState, x_al, lvl_sym, tau, num_steps: int):
+def _run_loop(st: TrackerState, x_al, lvl_sym, tau, num_steps: int,
+              debug_taps: bool = False):
     """The full symbol loop for every channel of st (tau already aligned).
     Returns (final state, outputs, ev (C, K_EVENTS*EV_FIELDS), counters)."""
     dev = x_al.device
@@ -415,6 +420,8 @@ def _run_loop(st: TrackerState, x_al, lvl_sym, tau, num_steps: int):
     sym_re = torch.empty((num_steps, c), dtype=torch.float32, device=dev)
     sym_im = torch.empty_like(sym_re)
     packed = torch.empty((num_steps, c), dtype=i32, device=dev)
+    taps = torch.empty((num_steps, c, 3), dtype=torch.float32, device=dev) \
+        if debug_taps else None
 
     def interp(tau, base, banks):
         """Interpolate every channel at its own tau from its 8-sample slab;
@@ -563,6 +570,8 @@ def _run_loop(st: TrackerState, x_al, lvl_sym, tau, num_steps: int):
         sym_im[t] = yq_im
         packed[t] = (in_data.to(i32) + 2 * (frame_counter & 3)
                      + 2 * C.FRAME_PARITY_SLOTS * out_data_idx)
+        if debug_taps:
+            taps[t] = torch.stack([dphi, err, tau - torch.floor(tau)], dim=-1)
         frame_counter = w(emit, frame_counter + 1, frame_counter)
         symbol_cnt = w(emit, 0, symbol_cnt)
 
@@ -599,7 +608,7 @@ def _run_loop(st: TrackerState, x_al, lvl_sym, tau, num_steps: int):
         sym=torch.complex(sym_re, sym_im),
         is_data=(packed & 1) != 0,
         data_idx=packed // (2 * C.FRAME_PARITY_SLOTS),
-        frame_parity=(packed >> 1) & (C.FRAME_PARITY_SLOTS - 1))
+        frame_parity=(packed >> 1) & (C.FRAME_PARITY_SLOTS - 1), taps=taps)
     ev = ev_table[:, :K_EVENTS].reshape(c, K_EVENTS * EV_FIELDS)
     return final, outs, ev, counters
 
@@ -648,7 +657,8 @@ def idle_update(st: TrackerState, lvl_sym: torch.Tensor, tau: torch.Tensor,
 
 
 def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
-                  num_steps: int, act: torch.Tensor | None = None):
+                  num_steps: int, act: torch.Tensor | None = None,
+                  debug_taps: bool = False):
     """Plain version of kernel K2: run the tracker over one block.
 
     Args:
@@ -660,6 +670,9 @@ def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
       act: (ceil(C/128),) int per 128-channel tile; 0 = the tile takes the
          closed-form idle update (every channel hunting, no preamble
          energy).  None = every tile runs the loop.
+      debug_taps: also return the loop's per-symbol internals in
+         outputs.taps (T, C, 3): Costas frequency, clamped phase error,
+         timing fraction (zeros for a tile on the idle path).
 
     Returns (new_state, outputs, ev (C, 44) f32, counters (C, 4) f32);
     new_state.tau is rebased for the next block.
@@ -679,7 +692,9 @@ def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
         is_data=torch.zeros((num_steps, c), dtype=torch.bool, device=dev),
         data_idx=torch.zeros((num_steps, c), dtype=torch.int32, device=dev),
         frame_parity=torch.zeros((num_steps, c), dtype=torch.int32,
-                                 device=dev))
+                                 device=dev),
+        taps=torch.zeros((num_steps, c, 3), dtype=torch.float32, device=dev)
+        if debug_taps else None)
     ev = torch.zeros((c, K_EVENTS * EV_FIELDS), dtype=torch.float32,
                      device=dev)
     counters = torch.zeros((c, 4), dtype=torch.float32, device=dev)
@@ -687,10 +702,11 @@ def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
     if len(a_idx):
         sub = select_channels(final, a_idx)
         st_a, o_a, ev_a, cnt_a = _run_loop(sub, x_al[a_idx], lvl_sym[a_idx],
-                                           sub.tau, num_steps)
+                                           sub.tau, num_steps, debug_taps)
         parts.append((a_idx, st_a))
         for full, part in zip(outs, o_a):
-            full[:, a_idx] = part
+            if full is not None:
+                full[:, a_idx] = part
         ev[a_idx] = ev_a
         counters[a_idx] = cnt_a
     if len(i_idx):

@@ -28,7 +28,11 @@ from . import tracker as trk
 from .tracker import (A1_SEARCH, CT, EV_FIELDS, HALO, K_EVENTS,
                       TrackerOutputs, TrackerState)
 
-launches = 0            # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), counted where the wrapper launches.  A
+# launch recorded into a CUDA graph counts once, when it is recorded; the
+# graph's replays are counted by their owner (SuperstepEngine.replays).
+launches = 0
+taps_launches = 0       # launches of the kernel's debug_taps instantiation
 
 ACQ_LAG = 3 * C.A_LEN   # 381 samples = 127 symbols
 # gate threshold on the lag-127-symbol periodicity statistic: frames at
@@ -94,6 +98,14 @@ def _kernel_tables(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return t(banks), t(eq0), t(seqs)
 
 
+@functools.cache
+def _padding_state(n: int, device) -> TrackerState:
+    """Fresh state of the n dummy channels that fill the last tile (made
+    once per size: the kernel copies its state planes, so this is never
+    written)."""
+    return trk.tracker_init(n, device)
+
+
 _SF = ('tau', 'rate', 'phi', 'dphi', 'freq_err', 'signal_level',
        'frame_sym_cnt', 'noise_floor')
 _SI = ('fr_state', 'symbols_wanted', 'search_retries', 'bitmask', 'mode',
@@ -122,9 +134,11 @@ def _unpack_window(words: torch.Tensor, c: int) -> torch.Tensor:
 
 def _tracker_kernel(state: TrackerState, x: torch.Tensor,
                     level: torch.Tensor, num_steps: int,
-                    act: torch.Tensor):
-    """Launch K2 on one block; same contract as tracker.tracker_block."""
-    global launches
+                    act: torch.Tensor, debug_taps: bool = False):
+    """Launch K2 on one block; same contract as tracker.tracker_block.
+    debug_taps launches the kernel's taps instantiation, which also fills
+    three (num_steps, c_pad) planes."""
+    global launches, taps_launches
     dev = x.device
     c, t_len = x.shape
     if (x.dtype != torch.complex64 or level.dtype != torch.float32
@@ -141,7 +155,7 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
     pad_n = c_pad - c
     st = state._replace(tau=state.tau - shift.to(torch.float32))
     if pad_n:                     # dummy channels: fresh state, no signal
-        init = trk.tracker_init(pad_n, dev)
+        init = _padding_state(pad_n, dev)
         st = TrackerState(*[None if a is None else torch.cat([a, b])
                             for a, b in zip(st, init)])
     shifts = torch.nn.functional.pad(shift, (0, pad_n)).contiguous()
@@ -162,17 +176,22 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
     packed = torch.empty((num_steps, c_pad), dtype=torch.int32, device=dev)
     ev = torch.empty((K_EVENTS * EV_FIELDS, c_pad), **f32)
     cnt = torch.empty((4, c_pad), **f32)
+    taps = torch.empty((3, num_steps, c_pad), **f32) if debug_taps else None
 
     lib = _build.library()
     ptr = lambda a: a.data_ptr()
     err = lib.hfdl_tracker(
         ptr(act), ptr(xc), ptr(lvl), ptr(shifts), ptr(banks), ptr(eq0),
         ptr(seqs), ptr(sf), ptr(si), ptr(eq), ptr(win), ptr(sym_re),
-        ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt), c_pad, c, t_len,
-        num_steps, trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
+        ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt),
+        ptr(taps) if debug_taps else None, c_pad, c, t_len, num_steps,
+        trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'tracker kernel')
-    launches += 1
+    if debug_taps:
+        taps_launches += 1
+    else:
+        launches += 1
 
     fields = {f: sf[i, :c] for i, f in enumerate(_SF)}
     fields.update({f: si[i, :c] for i, f in enumerate(_SI)})
@@ -189,7 +208,8 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
         sym=torch.complex(sym_re[:, :c], sym_im[:, :c]),
         is_data=(p & 1) != 0,
         data_idx=p // (2 * C.FRAME_PARITY_SLOTS),
-        frame_parity=(p >> 1) & (C.FRAME_PARITY_SLOTS - 1))
+        frame_parity=(p >> 1) & (C.FRAME_PARITY_SLOTS - 1),
+        taps=taps[:, :, :c].permute(1, 2, 0) if debug_taps else None)
     return final, outs, ev[:, :c].T, cnt[:, :c].T
 
 
@@ -213,15 +233,14 @@ def tracker_block(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
     """Run the tracker over one block (the JAX ``tracker_block_pallas``
     contract): CUDA tensors go to kernel K2, CPU tensors to the plain
     version.  use_acq=False runs every tile (full-trajectory parity).
-    The per-symbol loop taps of --datadumps (debug_taps) are not ported."""
-    if debug_taps:
-        raise NotImplementedError('tracker debug taps (--datadumps) are not '
-                                  'yet ported to dumphfdl_tpu_torch')
-    act, hits = tile_activity(state, x, use_acq)
+    debug_taps (--datadumps) also returns the loop's per-symbol internals
+    in outputs.taps (T, C, 3) and turns the gate off, as the JAX package
+    does, so that every channel has them."""
+    act, hits = tile_activity(state, x, use_acq and not debug_taps)
     if x.device.type == 'cuda':
-        out = _tracker_kernel(state, x, level, num_steps, act)
+        out = _tracker_kernel(state, x, level, num_steps, act, debug_taps)
     elif x.device.type == 'cpu':
-        out = trk.tracker_block(state, x, level, num_steps, act)
+        out = trk.tracker_block(state, x, level, num_steps, act, debug_taps)
     else:
         raise ValueError(f'unsupported device {x.device}')
     final, outs, ev, counters = out

@@ -77,7 +77,7 @@ def library() -> ctypes.CDLL:
             lib.hfdl_viterbi.restype = i
             lib.hfdl_viterbi_many.argtypes = [p, p, p, p, i, p]
             lib.hfdl_viterbi_many.restype = i
-            lib.hfdl_tracker.argtypes = [p] * 16 + [i, i, i, i] + [f] * 4 + [p]
+            lib.hfdl_tracker.argtypes = [p] * 17 + [i, i, i, i] + [f] * 4 + [p]
             lib.hfdl_tracker.restype = i
             lib.hfdl_tracker_trig_mismatches.argtypes = [p, p]
             lib.hfdl_tracker_trig_mismatches.restype = i

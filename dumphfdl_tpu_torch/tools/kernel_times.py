@@ -8,9 +8,11 @@ eight-mode event block through the one-launch entry, on uniformly random
 chips (no code words: the traceback's guessed states merge later than on
 real frames, so this is its slow case); for K2 (tracker) noise blocks with
 the gate off at 512 x 1800, 512 x 5376 and 2048 x 5376 symbols, through
-the wrapper (CUDA events) and the kernel alone (torch.profiler).  It also
-prints what ptxas reports for each source (registers, spills, shared
-memory).  Every line carries the card's name and power limit.  It checks
+the wrapper (CUDA events) and the kernel alone (torch.profiler), and its
+debug_taps instantiation at 512 x 1800 and 512 x 5376.  It also prints what
+ptxas reports for each kernel of each source (registers, spills, shared
+memory; K2's two instantiations are tracker_kernelILb0EE, the normal one,
+and tracker_kernelILb1EE, with the taps).  Every line carries the card's name and power limit.  It checks
 nothing: chip_smoke.py and tests/test_torch_cuda.py hold the kernels
 against their plain versions.
 """
@@ -56,6 +58,35 @@ def _kernel_alone_ms(fn, name: str) -> float:
         / max(1, sum(e.count for e in hits))
 
 
+def ptxas_report() -> dict[str, list[str]]:
+    """What ptxas says of each kernel of each source (its -v lines that
+    name the entry function, its registers and its spills), from a
+    compile of csrc/*.cu with the build's own flags into a scratch
+    directory."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(_build.CSRC.glob('*.cu')):
+            res = subprocess.run(
+                [_build._nvcc(), *_build.CUDA_FLAGS, '-Xptxas', '-v', '-c',
+                 '-o', f'{tmp}/{src.stem}.o', str(src)],
+                capture_output=True, text=True)
+            out[src.name] = [
+                ln.strip() for ln in res.stderr.splitlines()
+                if 'registers' in ln or 'spill' in ln
+                or 'Compiling entry function' in ln]
+    return out
+
+
+def registers(lines: list[str], entry: str) -> int:
+    """Registers per thread of the kernel whose mangled name holds `entry`,
+    from ptxas_report()'s lines of its source."""
+    for i, ln in enumerate(lines):
+        if 'Compiling entry function' in ln and entry in ln:
+            used = next(x for x in lines[i + 1:] if 'Used' in x)
+            return int(used.split('Used')[1].split('registers')[0])
+    raise KeyError(entry)
+
+
 def main() -> int:
     dev = require_cuda()
     card = subprocess.run(
@@ -66,15 +97,8 @@ def main() -> int:
     def say(what: str, **kv) -> None:
         print(f'[{card}] {what}: ' + json.dumps(kv), flush=True)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        for src in sorted(_build.CSRC.glob('*.cu')):
-            res = subprocess.run(
-                [_build._nvcc(), *_build.CUDA_FLAGS, '-Xptxas', '-v', '-c',
-                 '-o', f'{tmp}/{src.stem}.o', str(src)],
-                capture_output=True, text=True)
-            say(f'ptxas {src.name}', lines=[
-                ln.strip() for ln in res.stderr.splitlines()
-                if 'registers' in ln or 'spill' in ln])
+    for name, lines in ptxas_report().items():
+        say(f'ptxas {name}', lines=lines)
 
     rng = np.random.default_rng(1)
     lengths = [p.framebits for p in C.MODES]
@@ -99,6 +123,12 @@ def main() -> int:
         say('K2 noise', channels=nch, symbols=n_sym,
             wrapper_ms=_cuda_ms(run, 5),
             kernel_alone_ms=_kernel_alone_ms(run, 'tracker_kernel'))
+        if nch == 512:
+            taps = lambda: tracker_cuda.tracker_block(st, x, lvl, n_sym,
+                                                      debug_taps=True)
+            say('K2 noise, debug_taps', channels=nch, symbols=n_sym,
+                wrapper_ms=_cuda_ms(taps, 5),
+                kernel_alone_ms=_kernel_alone_ms(taps, 'tracker_kernel'))
     return 0
 
 

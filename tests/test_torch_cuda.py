@@ -111,3 +111,34 @@ def test_tracker_kernel_matches_plain(cuda):
             assert torch.equal(a, b)
     assert torch.equal(k[1].sym, p[1].sym)
     assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+
+
+def test_tracker_kernel_debug_taps(cuda):
+    """debug_taps launches the kernel's taps instantiation (its own launch
+    count): the three per-symbol planes equal the plain version's exactly,
+    and everything else is bit-equal to the normal instantiation with the
+    gate off, which the taps turn off themselves."""
+    nch, steps = 200, 450
+    t = steps * 3 + trk.HALO
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor((rng.standard_normal((nch, t))
+                         + 1j * rng.standard_normal((nch, t)))
+                        .astype(np.complex64), device=cuda)
+    lvl = torch.as_tensor((np.abs(rng.standard_normal((nch, t))) + 0.5)
+                          .astype(np.float32), device=cuda)
+    st = trk.tracker_init(nch, cuda)
+    before = tracker_cuda.launches, tracker_cuda.taps_launches
+    k = tracker_cuda.tracker_block(st, x, lvl, steps, debug_taps=True)
+    assert (tracker_cuda.launches, tracker_cuda.taps_launches) == \
+        (before[0], before[1] + 1)
+    p = trk.tracker_block(st, x, lvl, steps, None, debug_taps=True)
+    off = tracker_cuda.tracker_block(st, x, lvl, steps, use_acq=False)
+    assert off[1].taps is None and k[1].taps.shape == (steps, nch, 3)
+    assert torch.equal(k[1].taps, p[1].taps)
+    assert float(k[1].taps.abs().max()) > 0
+    for other in (p, off):
+        for a, b in zip(k[0][:-1], other[0][:-1]):
+            assert torch.equal(a, b)
+        assert torch.equal(k[1].sym, other[1].sym)
+        assert torch.equal(k[1].data_idx, other[1].data_idx)
+        assert torch.equal(k[2], other[2]) and torch.equal(k[3], other[3])

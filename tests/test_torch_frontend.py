@@ -110,11 +110,115 @@ def test_streaming_rings_match_jax():
 
 def test_receiver_refuses_blocks_the_fused_step_cannot_take():
     """At 2.16 Msps the resampler ratio is 25/16: a 5400-sample demod block
-    is not a whole number of cosets, and the port (fused path only)
-    raises, naming a block length that works."""
+    is not a whole number of cosets.  The receiver no longer raises for it
+    but takes the unfused path, as the JAX receiver does; what it still
+    refuses is a block that is not a whole number of symbols."""
+    from dumphfdl_tpu.dsp.receiver import WidebandReceiver as JReceiver
     from dumphfdl_tpu_torch.dsp.receiver import WidebandReceiver
     fs, center, freqs = CASES[1]
-    with pytest.raises(ValueError, match='5376'):
-        WidebandReceiver(fs, center, freqs, 'cpu')
-    assert WidebandReceiver(fs, center, freqs, 'cpu',
-                            block_len=5376).channelizer.fused_ready
+    rx = WidebandReceiver(fs, center, freqs, 'cpu')
+    assert not rx.fused and rx.superstep is None
+    assert rx.fused == JReceiver(fs, center, freqs).fused
+    assert WidebandReceiver(fs, center, freqs, 'cpu', block_len=5376).fused
+    with pytest.raises(ValueError, match='whole number of symbols'):
+        WidebandReceiver(fs, center, freqs, 'cpu', block_len=5402)
+
+
+def _noise(n, seed, scale=0.2):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            * scale).astype(np.complex64)
+
+
+def _exact_params(chz):
+    a_num = chz._out_count * chz._rs_num \
+        - chz._ring_global_start * chz._rs_den
+    a_int, a_fnum = divmod(a_num, chz._rs_den)
+    return a_fnum, a_int, chz._fs1_start
+
+
+@pytest.mark.parametrize('exact', [True, False])
+def test_resample_matches_jax(exact):
+    """The gather-interpolate resampler on the same fs1 ring and cursor:
+    the exact path (integer positions) and the float32 fallback (forced
+    here, as for a rate whose reduced ratio is huge).  The taps are summed
+    in another order than XLA's einsum: 2e-5 of the output's peak."""
+    fs, center, freqs = CASES[0]
+    jchz = jfe.Channelizer(fs, center, freqs, out_chunk=1800)
+    chz = fe.Channelizer(fs, center, freqs, 'cpu', out_chunk=1800)
+    jchz._rs_exact = chz._rs_exact = exact
+    ring = _noise(2 * chz._r1, 3).reshape(2, chz._r1)
+    if exact:
+        params = (7, 1234, chz._r1 - 300)       # the window wraps the ring
+        jparams = np.asarray(params, np.int32)[:, None]
+    else:
+        params = (0.28125, 1234, chz._r1 - 300)
+        jparams = np.asarray(params, np.float32)[:, None]
+    want = np.asarray(jchz._resample(jnp.asarray(ring), jchz._bank,
+                                     jnp.asarray(jparams), 1800))
+    got = chz._resample(torch.as_tensor(ring), params, 1800).numpy()
+    assert got.shape == want.shape == (2, 1800)
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize('fs,center,freqs,chunk', [
+    CASES[0] + (5400,), CASES[0] + (1000,),
+    (250_000, 10_000_000, [9_950_000, 10_040_000], 2700)])
+def test_process_device_matches_jax_block_for_block(fs, center, freqs, chunk):
+    """The unfused path in uneven uploads: process_device hands out the
+    same number of (rows, out_chunk) blocks as the JAX channelizer after
+    every upload, each within 2e-5 of the peak, with the same host
+    cursors; process() is their concatenation on the host.  48 kHz has
+    the ratio 10/9 (its 1000-sample chunk is no whole number of cosets:
+    only this path can take it); 250 kHz has 625/432."""
+    jchz = jfe.Channelizer(fs, center, freqs, out_chunk=chunk)
+    chz = fe.Channelizer(fs, center, freqs, 'cpu', out_chunk=chunk)
+    assert chz._rs_exact and jchz._rs_exact
+    x = _noise(int(2.6 * fs), 4)
+    cuts = [0, fs // 5, fs // 5 + 7001, int(1.5 * fs), len(x)]
+    n_blocks = 0
+    for a, b in zip(cuts, cuts[1:]):
+        want = jchz.process_device(x[a:b])
+        got = chz.process_device(x[a:b])
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert tuple(g.shape) == w.shape == (len(freqs), chunk)
+            np.testing.assert_allclose(g.numpy(), w,
+                                       atol=2e-5 * np.abs(w).max())
+        n_blocks += len(got)
+        for attr in ('_out_count', '_fs1_start', '_fs1_fill',
+                     '_ring_global_start', '_wb_fill'):
+            assert getattr(chz, attr) == getattr(jchz, attr), attr
+    assert n_blocks >= 2
+    tail = _noise(int(1.2 * fs), 5)       # at least one more block
+    want, got = jchz.process(tail), chz.process(tail)
+    assert got.shape == want.shape and got.dtype == np.complex64
+    assert got.shape[1] >= chunk
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+    none = chz.process(tail[:10])
+    assert none.shape == (len(freqs), 0)
+
+
+def test_channelize_frames_and_append_fs1_match_jax():
+    """The offline helper and the fs1 ring's append: channelize_frames
+    from phase zero as the JAX helper, its output appended to the ring at
+    the write cursor, and an append past the ring's room refused."""
+    fs, center, freqs = CASES[0]
+    jchz = jfe.Channelizer(fs, center, freqs)
+    chz = fe.Channelizer(fs, center, freqs, 'cpu')
+    frames = _noise(3 * chz.geo.fft_size, 6, 0.3).reshape(3, -1)
+    want, wph = jchz.channelize_frames(frames)
+    got, ph = chz.channelize_frames(frames)
+    peak = float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5 * peak)
+    np.testing.assert_allclose(ph.numpy(), np.asarray(wph), atol=1e-6)
+    jchz._append_fs1(want)
+    chz._append_fs1(got)
+    assert chz._fs1_fill == jchz._fs1_fill == got.shape[1]
+    assert chz._fs1_wcur == int(np.asarray(jchz._fs1_wcur)[0, 0])
+    np.testing.assert_allclose(chz._fs1_ring.numpy(),
+                               np.asarray(jchz._fs1_ring), atol=2e-5 * peak)
+    with pytest.raises(RuntimeError, match='fs1 ring overflow'):
+        chz._append_fs1(torch.zeros((2, chz._r1), dtype=torch.complex64))

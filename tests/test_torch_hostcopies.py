@@ -34,8 +34,8 @@ SYSTABLE = str(ROOT / 'etc' / 'systable.conf')
 
 COPIED = ['constants.py', 'sequences.py', 'ops/bits.py', 'ops/crc.py',
           'ops/interleave.py', 'io/formats.py', 'io/formatters.py',
-          'io/native.py', 'io/outputs.py', 'utils/statsd.py',
-          'utils/debug.py'] + [
+          'io/native.py', 'io/outputs.py', 'io/soapy_input.py',
+          'dsp/dumpfile.py', 'utils/statsd.py', 'utils/debug.py'] + [
     f'protocol/{m}.py' for m in (
         'tree', 'libconfig', 'enrichment', 'runtime', 'pdu', 'mpdu', 'spdu',
         'lpdu', 'hfnpdu', 'acars', 'adsc', 'cpdlc', 'media_adv', 'miam',

@@ -100,10 +100,18 @@ def test_cli_text_matches_jax_cli(tmp_path, monkeypatch, jax_fused_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flag in (['--soapysdr', 'driver=rtlsdr'], ['--mesh', '2x4'],
-                 ['--profile', str(tmp_path)], ['--datadumps']):
+    """--mesh and --profile are all that is left; --soapysdr gets as far as
+    looking for the SoapySDR bindings, --datadumps as far as its input."""
+    for flag in (['--mesh', '2x4'], ['--profile', str(tmp_path)]):
         with pytest.raises(SystemExit, match='not yet ported'):
             cli.main(flag + ['--sample-rate', '48000', '8912'], device='cpu')
+    assert cli._NOT_PORTED == ('mesh', 'profile')
+    with pytest.raises(SystemExit, match='SoapySDR python bindings'):
+        cli.main(['--soapysdr', 'driver=rtlsdr', '--sample-rate', '48000',
+                  '8912'], device='cpu')
+    with pytest.raises(SystemExit, match='no input selected'):
+        cli.main(['--datadumps', '--sample-rate', '48000', '8912'],
+                 device='cpu')
 
 
 def test_cli_requires_a_cuda_device():
@@ -179,3 +187,39 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     for r in runs:
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_default_demod_block_at_2160k_decodes(tmp_path, monkeypatch):
+    """2.16 Msps with the CLI's default --demod-block 5400: the resampler's
+    ratio is 25/16, the block is no whole number of cosets and the rate
+    does not align for the superstep, so the receiver takes the unfused
+    path (the port used to refuse this; the JAX CLI always decoded it).
+    Two channels, one short frame each."""
+    import numpy as np
+    from dumphfdl_tpu_torch.app import HfdlApp
+    from dumphfdl_tpu_torch.dsp import modulator
+    from dumphfdl_tpu_torch.io import formats as tformats
+    fs, center = 2_160_000, 10_000_000
+    freqs = [9_700_000, 10_400_000]
+    rng = np.random.default_rng(9)
+    emissions = [(modulator.make_test_mpdu(m, rng), m, f)
+                 for m, f in zip((3, 1), freqs)]
+    wb = modulator.synthesize_wideband_fft(emissions, fs=fs,
+                                           centerfreq=center, snr_db=30.0,
+                                           pad_symbols=100)
+    path = tmp_path / 'cap.cs16'
+    path.write_bytes(tformats.serialize(wb, 'CS16'))
+    seen, apps = [], []
+    handle = HfdlApp.handle_events
+    monkeypatch.setattr(HfdlApp, 'handle_events', lambda self, evs: (
+        apps.append(self), seen.extend(evs), handle(self, evs))[2])
+    rc = cli.main(['--iq-file', str(path), '--sample-format', 'CS16',
+                   '--sample-rate', str(fs), '--centerfreq', '10000',
+                   '--output', f'decoded:text:file:path={tmp_path / "o.txt"}',
+                   '9700', '10400'], device='cpu')
+    assert rc == 0
+    rx = apps[0].receiver
+    assert not rx.fused and rx.superstep is None and rx.block_len == 5400
+    assert [(e.channel, e.mode, e.fcs_ok, e.pdu) for e in
+            sorted(seen) if e.pdu] == \
+        [(k, m, True, pdu) for k, (pdu, m, _f) in enumerate(emissions)]

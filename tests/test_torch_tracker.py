@@ -234,9 +234,84 @@ def test_acq_hits_match_jax():
     assert got.tolist() == want.tolist() == [1, 0]
 
 
+def _noise_block(nch, steps, seed):
+    t = steps * 3 + trk.HALO
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((nch, t))
+         + 1j * rng.standard_normal((nch, t))).astype(np.complex64)
+    lvl = np.abs(rng.standard_normal((nch, t)).astype(np.float32)) + 0.5
+    return x, lvl
+
+
 def test_debug_taps_are_refused():
-    st = trk.tracker_init(1, 'cpu')
-    x = torch.zeros((1, 3 * 10 + trk.HALO), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        tracker_cuda.tracker_block(st, x, torch.ones(x.shape), 10,
-                                   debug_taps=True)
+    """debug_taps is not refused: the wrapper returns the loop's per-symbol
+    internals (Costas frequency, clamped phase error, timing fraction) like
+    the JAX scan tracker: (T, C, 3), 2e-5."""
+    nch, steps = 3, 120
+    x, lvl = _noise_block(nch, steps, 11)
+    js = jtrk.tracker_init(nch)
+    s1, o1, ev1, c1 = jtrk.tracker_block(js, jnp.asarray(x), jnp.asarray(lvl),
+                                         steps, debug_taps=True)
+    s2, o2, ev2, c2 = tracker_cuda.tracker_block(
+        trk.state_from_numpy(_np_state(js), 'cpu'), torch.as_tensor(x),
+        torch.as_tensor(lvl), steps, debug_taps=True)
+    assert o2.taps.shape == (steps, nch, 3) == np.asarray(o1.taps).shape
+    np.testing.assert_allclose(o2.taps.numpy(), np.asarray(o1.taps),
+                               rtol=TOL, atol=TOL)
+    assert float(o2.taps.abs().amax(dim=(0, 1)).min()) > 0   # all 3 planes
+    _assert_state_close(_np_state(s1), s2)
+    _assert_outputs(o1, o2)
+    _assert_events(ev1, ev2)
+
+
+@pytest.mark.parametrize('use_acq', [False, True])
+def test_debug_taps_change_nothing_else(use_acq):
+    """With the taps on the gate is off (as in the JAX package), so state,
+    symbols, events and counters are bit-equal to a taps-off block with the
+    gate off, whatever use_acq says; without debug_taps there are no taps."""
+    nch, steps = 3, 400            # long enough for the gate to assess
+    x, lvl = _noise_block(nch, steps, 12)
+    x *= 0.2
+    st = trk.tracker_init(nch, 'cpu')
+    args = (st, torch.as_tensor(x), torch.as_tensor(lvl), steps)
+    off = tracker_cuda.tracker_block(*args, use_acq=False)
+    on = tracker_cuda.tracker_block(*args, use_acq=use_acq, debug_taps=True)
+    assert off[1].taps is None
+    for a, b in zip(on[0], off[0]):
+        assert torch.equal(a, b)
+    for f in ('sym', 'is_data', 'data_idx', 'frame_parity'):
+        assert torch.equal(getattr(on[1], f), getattr(off[1], f)), f
+    assert torch.equal(on[2], off[2]) and torch.equal(on[3], off[3])
+    if use_acq:     # the gate alone would have idled this all-noise tile
+        gated = tracker_cuda.tracker_block(*args, use_acq=True)
+        assert not torch.equal(gated[1].sym, off[1].sym)
+
+
+def test_debug_taps_on_a_frame():
+    """The taps over a block that holds a frame's preamble and training,
+    from the JAX scan tracker's state after the block before."""
+    rng = np.random.default_rng(7)
+    pdu = jmod.make_test_mpdu(0, rng, icao=0x3C0002)
+    iq = jmod.synthesize_iq(jmod.frame_symbols(pdu, 0), imp=jmod.Impairments(
+        snr_db=25.0, cfo_hz=-8.0, timing_offset=0.3, seed=4))
+    x = iq[None, :].astype(np.complex64)
+    blk = 1500
+    _, y, lv = agc_block(agc_init(1), jnp.asarray(x[:, :2 * blk]))
+    mf = jnp.concatenate([jnp.zeros((1, trk.HALO), jnp.complex64),
+                          matched_filter(y)], axis=1)
+    lve = jnp.concatenate([jnp.ones((1, trk.HALO), jnp.float32), lv], axis=1)
+    steps = blk // 3
+    js, _, _, _ = jtrk.tracker_block(jtrk.tracker_init(1),
+                                     mf[:, :blk + trk.HALO],
+                                     lve[:, :blk + trk.HALO], steps)
+    x2, l2 = mf[:, blk:], lve[:, blk:]
+    _, o1, _, _ = jtrk.tracker_block(js, x2, l2, steps, debug_taps=True)
+    _, o2, _, _ = tracker_cuda.tracker_block(
+        trk.state_from_numpy(_np_state(js), 'cpu'),
+        torch.as_tensor(np.array(x2)), torch.as_tensor(np.array(l2)), steps,
+        debug_taps=True)
+    # the timing fraction wraps at 1: compare it on the circle
+    d = o2.taps.numpy() - np.asarray(o1.taps)
+    d[..., 2] = (d[..., 2] + 0.5) % 1.0 - 0.5
+    assert np.abs(d).max() <= 1e-4
+    _assert_outputs(o1, o2)
