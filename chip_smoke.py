@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py mesh      # only phases 1, 2, 8 and 12-14: the
+                                    # multi-device path and the pass it is
+                                    # held to (for a machine with four cards)
 
 Phases, each printing one line with the card's name and power limit:
 
@@ -64,7 +67,40 @@ Phases, each printing one line with the card's name and power limit:
 11. datadumps - the golden capture through the CLI with --datadumps in a
                scratch directory: nine files per channel with the expected
                sample counts, the pinned bytes decoded, the taps kernel
-               launched.
+               launched;
+12. mesh    -- the multi-device path at full width: the 512-channel capture
+               of the scale phase (default --demod-block 5400) through the
+               app cli.build_app makes with a mesh: 2x2, and also 1x1 (one
+               shard, no copies) and 4x1 (time only).  A mesh takes cuda:0..3
+               where four devices are visible, else four logical shards on
+               cuda:0, each with its own state and stream (the line says
+               which: physical_devices).  Exact ledger; the (channel, mode,
+               PDU) set of the unfused single-device pass, frequency errors
+               within 0.1 Hz; the bytes DeviceMesh.send counted per
+               super-block equal to comm_model()'s, the reshard exactly
+               (T-1)/T of the fs1 chunk, nothing else moved between shards;
+               K2 launched shards x blocks times, K1 once per (shard, block)
+               that carried events; wall, device operations, peak memory,
+               per-stage wall of an instrumented pass.  On the 2x2 mesh,
+               K2's wrapper against the plain version on the very blocks a
+               shard hands it in its own stream (128 channels x 1800
+               symbols, gate on, carried state, two consecutive blocks:
+               exact), and K1 on that shard's event blocks (bit-exact);
+13. mesh frontend - two consecutive ShardedFrontend.step on the 2x2 mesh
+               against Channelizer.channelize_frames on one device for the
+               same frames: within 2e-5 of the peak where each span starts
+               from the sharded frontend's own start phase (float64 on the
+               host), within 1e-4 where the channelizer carries its phase
+               itself in float32 over the whole block;
+14. dryrun  -- parallel.sharding.dryrun_multichip at its default geometry
+               (64 channels at 432 ksps, 8 emitters) on a 2x2 mesh;
+15. profile -- the golden capture through the CLI with --profile: the Chrome
+               trace exists, parses and holds K1's and K2's kernel events;
+16. parity  -- the two scenarios of tests/golden/chip_parity.json through K1
+               and K2 (tools/chip_parity.py): integers and digests exact,
+               floats within their stated bounds;
+17. multihost - the single-process answers of parallel/multihost (two nccl
+               ranks cannot share one card, so no process group is made).
 
 Each kernel's line carries bound_ms, the least time the card could take
 for the same work: the larger of the bytes the function must move over the
@@ -98,6 +134,7 @@ import torch
 
 from dumphfdl_tpu_torch import constants as C
 from dumphfdl_tpu_torch.device import require_cuda
+from dumphfdl_tpu_torch.utils.profiling import device_profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / 'build' / 'smoke'
@@ -456,41 +493,6 @@ def phase_golden(card: str, dev: torch.device) -> None:
         wall_s=wall)
 
 
-# kernel kinds of the profiled pass, by a key in the kernel's name (the
-# first key that matches names the kind)
-_KINDS = (('viterbi27_kernel', 'K1 Viterbi'), ('tracker_kernel', 'K2 tracker'),
-          ('memcpy', 'memcpy/memset'), ('memset', 'memcpy/memset'),
-          ('fft', 'cuFFT'), ('index', 'gather/index'),
-          ('gather', 'gather/index'), ('scan', 'scan'), ('sort', 'sort'),
-          ('reduce', 'reduce'), ('cat', 'cat/copy'), ('copy', 'cat/copy'),
-          ('elementwise', 'elementwise'))
-
-
-def device_profile(prof, wall_s: float) -> dict:
-    """Device time of a torch.profiler run: busy milliseconds (the union of
-    the device intervals), busy share of wall_s, and time by kernel kind."""
-    from torch.autograd import DeviceType
-    spans, kinds = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
-        spans.append((t0, t1))
-        n = e.name.lower()
-        kind = next((k for key, k in _KINDS if key in n), 'other')
-        ms, cnt = kinds.get(kind, (0.0, 0))
-        kinds[kind] = (ms + (t1 - t0) / 1e3, cnt + 1)
-    busy_us, end = 0.0, float('-inf')
-    for t0, t1 in sorted(spans):
-        if t1 > end:
-            busy_us += t1 - max(t0, end)
-            end = t1
-    return dict(device_events=len(spans), busy_ms=busy_us / 1e3,
-                busy_share=busy_us / 1e6 / wall_s,
-                by_kind={k: [ms, cnt] for k, (ms, cnt) in
-                         sorted(kinds.items(), key=lambda kv: -kv[1][0])})
-
-
 # A frame that fails its header FCS is junk: the app counts and drops it.
 # One kind is expected on the 1024-channel capture.  There the channels are
 # 3355 Hz apart and each leaves the channelizer at 6750 sps, so a
@@ -554,14 +556,24 @@ def _ledger(events, emit_by_chan: dict, alias_step: int | None = None) -> dict:
     return led
 
 
+def _sync_all() -> None:
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
 def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
-                prof=None, drive=None, prepare=None, alias_step=None):
+                prof=None, drive=None, prepare=None, alias_step=None,
+                mesh=None):
     """Build the app as the CLI does and decode the capture once:
     (set-up seconds, wall seconds of the decode, ledger, app).  drive(app,
     args) feeds the app (default: run_file on the file); prepare(app) may
-    adjust it first."""
+    adjust it first.  mesh: a DeviceMesh to decode on (what --mesh would
+    build, where this script names the devices itself).  The events the
+    app handled are left in app.smoke_events."""
     from dumphfdl_tpu_torch import cli
     args = cli.build_parser().parse_args(argv)
+    if mesh is not None:
+        args.mesh = mesh
     t0 = time.perf_counter()
     app = cli.build_app(args, dev)
     setup = time.perf_counter() - t0
@@ -571,16 +583,17 @@ def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
         drive = lambda app, args: app.run_file(args.iq_file,
                                                args.sample_format)
     rec = _Recorder()
-    torch.cuda.synchronize()
+    _sync_all()
     try:
         with prof if prof is not None else contextlib.nullcontext():
             t0 = time.perf_counter()
             drive(app, args)
-            torch.cuda.synchronize()
+            _sync_all()
             wall = time.perf_counter() - t0
     finally:
         rec.close()
         app.shutdown()
+    app.smoke_events = rec.events
     led = _ledger(rec.events, emit_by_chan, alias_step)
     if not led['exact']:
         raise AssertionError(f'ledger not exact: {led}')
@@ -588,9 +601,8 @@ def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
 
 
 def _profiler():
-    return torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    from dumphfdl_tpu_torch.utils import profiling
+    return profiling.profiler('cuda')
 
 
 @contextlib.contextmanager
@@ -743,10 +755,11 @@ def phase_k2_taps(card: str, dev: torch.device) -> dict:
                 max_abs_err=0.0, ms=ms, plain_ms=t_p, library_ms=None, **bnd)
 
 
-def phase_unfused(card: str, dev: torch.device, cap) -> None:
+def phase_unfused(card: str, dev: torch.device, cap) -> list:
     """The scale capture with the CLI's default --demod-block 5400: at
     2.16 Msps no whole number of resampler cosets, so the receiver takes
-    the unfused channelizer path."""
+    the unfused channelizer path.  Returns the pass's events, which the
+    mesh phase is held to."""
     path, freqs, center, emit_by_chan, duration, _ = cap
     argv = _argv(path, 2_160_000, center, freqs, 5400, 'unfused.txt')
     checked = []
@@ -757,7 +770,7 @@ def phase_unfused(card: str, dev: torch.device, cap) -> None:
             raise AssertionError('unfused phase: the receiver took another '
                                  'path')
         checked.append(rx)
-    _, wall, led, _ = _scale_pass(argv, dev, emit_by_chan, prepare=prepare)
+    _, wall, led, app = _scale_pass(argv, dev, emit_by_chan, prepare=prepare)
     prof = _profiler()
     _, wall_p, _, _ = _scale_pass(argv, dev, emit_by_chan, prof,
                                   prepare=prepare)
@@ -766,6 +779,7 @@ def phase_unfused(card: str, dev: torch.device, cap) -> None:
         demod_block=5400, capture_s=duration, wall_s=wall,
         rt_factor=duration / wall, profiled_wall_s=wall_p,
         receivers_checked=len(checked), **led, **dp)
+    return app.smoke_events
 
 
 def _superstep_pass(*args, **kw):
@@ -1057,46 +1071,466 @@ def phase_datadumps(card: str, dev: torch.device) -> int:
     return launches
 
 
+def _mesh_of(t: int, k: int):
+    """(what to decode on, physical device count): the CLI's --mesh string
+    where enough devices are visible for it, else a DeviceMesh of t*k
+    logical shards on cuda:0."""
+    from dumphfdl_tpu_torch.parallel.sharding import DeviceMesh
+    n = torch.cuda.device_count()
+    if n >= t * k:
+        return f'{t}x{k}', t * k
+    return DeviceMesh([['cuda:0'] * k for _ in range(t)]), 1
+
+
+def _mesh_pass(argv, dev, emit_by_chan, t, k, prof=None, instrument=False):
+    """One decode on a t x k mesh; (wall, ledger, app, physical devices)."""
+    from dumphfdl_tpu_torch.parallel.sharding import ShardedWidebandReceiver
+    mesh, physical = _mesh_of(t, k)
+
+    def prepare(app):
+        rx = app.receiver
+        if not isinstance(rx, ShardedWidebandReceiver) or \
+                rx.mesh.shape != {'time': t, 'chan': k}:
+            raise AssertionError('mesh phase: not the sharded receiver')
+        rx.instrument = instrument
+    if isinstance(mesh, str):
+        argv, mesh = ['--mesh', mesh] + argv, None
+    _, wall, led, app = _scale_pass(argv, dev, emit_by_chan, prof,
+                                    prepare=prepare, mesh=mesh)
+    return wall, led, app, physical
+
+
+def _check_mesh_traffic(rx) -> dict:
+    """The bytes counted between shards over a pass against comm_model():
+    halo and reshard per super-block as modelled, the reshard exactly
+    (T-1)/T of the fs1 chunk, and no other kind of copy (so the append,
+    resample and demod part moved nothing)."""
+    model, fr, mesh = rx.comm_model(), rx.frontend, rx.mesh
+    T = fr.T
+    want = {}
+    if T > 1:
+        want = {'halo': fr.steps * model['halo_bytes_per_superblock'],
+                'reshard': fr.steps * model['reshard_bytes_per_superblock']}
+    chunk = rx.bank._c * fr.nb_cols * 8
+    if mesh.moved != want or fr.steps < 1 or \
+            model['reshard_bytes_per_superblock'] * T != chunk * (T - 1) or \
+            fr.upload_bytes != fr.steps * model['upload_bytes_per_superblock']:
+        raise AssertionError(f'mesh traffic {mesh.moved} over {fr.steps} '
+                             f'steps, modelled {want}')
+    return dict(super_blocks=fr.steps,
+                halo_bytes_per_superblock=model['halo_bytes_per_superblock'],
+                reshard_bytes_per_superblock=model[
+                    'reshard_bytes_per_superblock'],
+                fs1_chunk_bytes=chunk,
+                upload_bytes_per_superblock=model[
+                    'upload_bytes_per_superblock'],
+                copies=dict(mesh.copies), other_bytes_between_shards=0,
+                comm_model={k: v for k, v in model.items()
+                            if k.endswith('_per_s')})
+
+
+def _kernels_on_mesh_blocks(card: str, argv, dev, emit_by_chan) -> dict:
+    """K2 and K1 at the shapes the 2x2 mesh gives them.  Decodes the
+    capture once more on the mesh while recording what every shard hands
+    tracker_cuda.tracker_block (the carried TrackerState, its 128 channels'
+    extended matched-filter block and level, 1800 symbols, gate on, in the
+    shard's own stream) and fec_cuda.viterbi_decode_many (an event block's
+    soft chips for the eight modes).  Then, for the last shard that decoded
+    frames, holds each wrapper against its plain version on those inputs:
+    K2 on two consecutive blocks, the second the first that completes a
+    frame, and K1 on the shard's event blocks, all exact.  Returns K2's
+    kernels-line entry at this shape (without its launches)."""
+    from dumphfdl_tpu_torch.dsp import tracker as trk
+    from dumphfdl_tpu_torch.dsp import tracker_cuda as tc
+    from dumphfdl_tpu_torch.ops import fec, fec_cuda
+    k2_seen, k1_seen = {}, {}
+    k2_wrapper, k1_wrapper = tc.tracker_block, fec_cuda.viterbi_decode_many
+
+    def shard_of(t):        # a shard is known by the stream its work is in
+        return str(t.device), torch.cuda.current_stream(t.device).cuda_stream
+
+    def k2_recording(state, x, level, num_steps, use_acq=True,
+                     debug_taps=False):
+        k2_seen.setdefault(shard_of(x), []).append(
+            (trk.TrackerState(*[None if v is None else v.clone()
+                                for v in state]),
+             x.clone(), level.clone(), num_steps, use_acq, debug_taps))
+        return k2_wrapper(state, x, level, num_steps, use_acq, debug_taps)
+
+    def k1_recording(softs, nbits):
+        k1_seen.setdefault(shard_of(softs[0]), []).append(
+            ([s.clone() for s in softs], list(nbits)))
+        return k1_wrapper(softs, nbits)
+
+    tc.tracker_block = k2_recording
+    fec_cuda.viterbi_decode_many = k1_recording
+    try:
+        _, _, app, physical = _mesh_pass(argv, dev, emit_by_chan, 2, 2)
+    finally:
+        tc.tracker_block = k2_wrapper
+        fec_cuda.viterbi_decode_many = k1_wrapper
+    rows = app.receiver.bank.rows_per_shard
+    blocks = {len(v) for v in k2_seen.values()}
+    if len(k2_seen) != 4 or len(blocks) != 1 or not k1_seen or \
+            not set(k1_seen) <= set(k2_seen):
+        raise AssertionError(f'mesh kernels: K2 calls from {len(k2_seen)} '
+                             f'streams ({blocks} blocks each), K1 calls '
+                             f'from {len(k1_seen)}')
+    shard = list(k1_seen)[-1]       # the last one: not the first device
+    seen = k2_seen[shard]
+    with torch.cuda.device(seen[0][1].device):
+        # the first block of this shard that completes a frame, and the one
+        # before it
+        first = None
+        for i, (st, x, lvl, n_sym, use_acq, taps) in enumerate(seen):
+            if (tuple(x.shape), n_sym, use_acq, taps) != \
+                    ((rows, 5400 + trk.HALO), 1800, True, False):
+                raise AssertionError(f'mesh K2: a shard handed the wrapper '
+                                     f'{tuple(x.shape)}, {n_sym}, {use_acq}')
+            ev = k2_wrapper(st, x, lvl, n_sym, use_acq)[2]
+            if first is None and bool(
+                    (ev.reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)[:, :, 0]
+                     > 0.5).any()):
+                first = i
+        if not first:
+            raise AssertionError(f'mesh K2: no block after the first '
+                                 f'completes a frame ({first})')
+        for i in (first - 1, first):
+            st, x, lvl, n_sym, _, _ = seen[i]
+            act, _ = tc.tile_activity(st, x, True)
+            r_k, r_p, t_p = _k2_pair(st, x, lvl, n_sym, use_acq=True)
+            if _compare_k2(f'mesh block {i}', *r_k, *r_p, tol=0.0) != 0.0:
+                raise AssertionError('mesh K2: not exact')
+            ev = r_k[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)
+            n_ev = int((ev[:, :, 0] > 0.5).sum())
+            tiles = int(act.sum())
+            t_k = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
+                                                   use_acq=True), 5)
+            # the work of this block's data: its active tiles' channels
+            bnd = k2_bound(tiles * trk.CT, x.shape[1], n_sym)
+            say(card, 'mesh K2', mesh='2x2', shard_device=shard[0],
+                physical_devices=physical, block=i, blocks=len(seen),
+                channels=x.shape[0], symbols=n_sym, gate=True,
+                active_tiles=tiles, tiles=len(act), events=n_ev,
+                max_abs_err=0.0, kernel_ms=t_k, plain_ms=t_p, **bnd)
+        if n_ev < 1 or tiles < 1:
+            raise AssertionError('mesh K2: the compared block carried no '
+                                 'frame')
+        # K1 on the event blocks the same shard decoded
+        for j, (softs, nbits) in enumerate(k1_seen[shard][:2]):
+            before = fec_cuda.launches
+            got = fec_cuda.viterbi_decode_many(softs, nbits)
+            if fec_cuda.launches != before + 1:
+                raise AssertionError('mesh K1: the wrapper did not launch')
+            plain, t_p1 = timed_ms(lambda: [fec.viterbi_decode(s_, n_)
+                                            for s_, n_ in zip(softs, nbits)])
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                raise AssertionError(f'mesh K1: event block {j} differs from '
+                                     'the plain version')
+            t_k1 = cuda_ms(lambda: fec_cuda.viterbi_decode_many(softs, nbits),
+                           20)
+            say(card, 'mesh K1', mesh='2x2', shard_device=shard[0],
+                event_block=j, event_blocks=len(k1_seen[shard]),
+                frames=[int(s_.shape[0]) for s_ in softs], nbits=nbits,
+                bit_exact=True, kernel_ms=t_k1, plain_ms=t_p1,
+                **k1_bound(softs, got))
+    return dict(name='tracker_mesh', route='cuda',
+                source='dumphfdl_tpu_torch/csrc/tracker.cu',
+                replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
+                max_abs_err=0.0, ms=t_k, plain_ms=t_p, library_ms=None, **bnd)
+
+
+def phase_mesh(card: str, dev: torch.device, cap, unfused_events) -> dict:
+    """The 512-channel capture on a 2x2, a 1x1 and a 4x1 mesh.  Returns
+    (the wrappers' launch counts over the first 2x2 pass, K2's kernels-line
+    entry at a shard's shape)."""
+    from dumphfdl_tpu_torch.dsp import channel, tracker_cuda
+    from dumphfdl_tpu_torch.ops import fec_cuda
+    path, freqs, center, emit_by_chan, duration, _ = cap
+    fs = 2_160_000
+    argv = _argv(path, fs, center, freqs, 5400, 'mesh.txt')
+    want = sorted((e.channel, e.mode, e.pdu) for e in unfused_events if e.pdu)
+    want_ferr = {e.channel: e.freq_err_hz for e in unfused_events if e.pdu}
+    n_dev = torch.cuda.device_count()
+    peers = {f'{a}->{b}': torch.cuda.can_device_access_peer(a, b)
+             for a in range(n_dev) for b in range(n_dev) if a != b}
+    collects = []
+    fused_collect = channel.fused_collect
+
+    def counting(*a, **kw):
+        collects.append(1)
+        return fused_collect(*a, **kw)
+
+    launches = None
+    for t, k in ((2, 2), (1, 1), (4, 1)):
+        for d in range(n_dev):
+            torch.cuda.reset_peak_memory_stats(d)
+        collects.clear()
+        fec_cuda.launches = tracker_cuda.launches = 0
+        channel.fused_collect = counting
+        try:
+            wall, led, app, physical = _mesh_pass(argv, dev, emit_by_chan,
+                                                  t, k)
+        finally:
+            channel.fused_collect = fused_collect
+        got_launches = {'viterbi27': fec_cuda.launches,
+                        'tracker': tracker_cuda.launches}
+        peak = [torch.cuda.max_memory_allocated(d) for d in range(physical)]
+        rx = app.receiver
+        events = [e for e in app.smoke_events if e.pdu]
+        got = sorted((e.channel, e.mode, e.pdu) for e in events)
+        ferr = max(abs(e.freq_err_hz - want_ferr[e.channel]) for e in events) \
+            if got == want else float('nan')
+        if got != want or not ferr < 0.1:
+            raise AssertionError(f'mesh {t}x{k}: events differ from the '
+                                 f'unfused single-device pass (freq_err '
+                                 f'{ferr})')
+        traffic = _check_mesh_traffic(rx)
+        blocks = rx.resamplers[0]._out_count // 5400
+        shards_with_events = len({e.channel // rx.bank.rows_per_shard
+                                  for e in events})
+        if got_launches['tracker'] != t * k * blocks or \
+                got_launches['viterbi27'] != len(collects) or \
+                not shards_with_events <= len(collects) <= t * k * blocks:
+            raise AssertionError(
+                f'mesh {t}x{k}: launched {got_launches} in {blocks} blocks '
+                f'on {t * k} shards, {len(collects)} event collections')
+        # a second pass under the profiler, a third instrumented
+        prof = _profiler()
+        wall_p, _, _, _ = _mesh_pass(argv, dev, emit_by_chan, t, k, prof)
+        dp = device_profile(prof, wall_p)
+        _, _, iapp, _ = _mesh_pass(argv, dev, emit_by_chan, t, k,
+                                   instrument=True)
+        say(card, 'mesh', mesh=f'{t}x{k}', shards=t * k,
+            physical_devices=physical, visible_devices=n_dev,
+            peer_access=peers, channels=len(freqs), sample_rate=fs,
+            demod_block=5400, capture_s=duration, wall_s=wall,
+            rt_factor=duration / wall, profiled_wall_s=wall_p,
+            max_memory_allocated=peak, launches=got_launches,
+            demod_blocks=blocks, event_collections=len(collects),
+            shards_with_events=shards_with_events,
+            pdus_equal_unfused=True, max_freq_err_diff_hz=ferr,
+            stage_wall_s=iapp.receiver.stage_time, **traffic, **led, **dp)
+        if launches is None:
+            launches = got_launches
+            k2_mesh = _kernels_on_mesh_blocks(card, argv, dev, emit_by_chan)
+    return launches, k2_mesh
+
+
+def phase_mesh_frontend(card: str, dev: torch.device, cap) -> None:
+    """One sharded frontend step on the 2x2 mesh at the 512-channel
+    geometry against the plain Channelizer on one device."""
+    from dumphfdl_tpu_torch.dsp import frontend as fe
+    from dumphfdl_tpu_torch.parallel.sharding import (DeviceMesh,
+                                                      ShardedFrontend)
+    _, freqs, center, _, _, _ = cap
+    fs = 2_160_000
+    n = torch.cuda.device_count()
+    names = [f'cuda:{i}' for i in range(4)] if n >= 4 else ['cuda:0'] * 4
+    mesh = DeviceMesh([names[:2], names[2:]])
+    geo = fe.compute_geometry(fe.compute_fft_decimation_rate(fs),
+                              C.CHANNEL_TRANSITION_BW_HZ / fs)
+    tables = fe._design_tables(geo, fs, center, tuple(freqs), len(freqs))
+    front = ShardedFrontend(geo, tables, mesh)
+    rng = np.random.default_rng(13)
+    x = ((rng.standard_normal(2 * front.super_len)
+          + 1j * rng.standard_normal(2 * front.super_len)) * 0.3) \
+        .astype(np.complex64)
+    chz = fe.Channelizer(fs, center, freqs, dev, rows=len(freqs))
+    ext = torch.as_tensor(np.concatenate(
+        [np.zeros(geo.overlap_length, np.complex64), x]), device=dev)
+    residual64 = tables[1]
+    n_span = front.F * geo.post_input_size
+    carried = None              # the plain channelizer's own float32 phase
+    worst = worst_carried = 0.0
+    for i in range(2):          # the second step starts from carried state
+        got = front.gather(front.step(
+            x[i * front.super_len:(i + 1) * front.super_len]))
+        frames = ext[i * front.super_len:].unfold(
+            0, geo.fft_size, geo.input_size)[:front.T * front.F]
+        # the reference: the same frames through the plain channelizer in
+        # batches of a shard's span, each from the start phase the sharded
+        # frontend's policy gives it (float64 on the host); and once more
+        # from the phase the plain channelizer carries itself in float32
+        parts = []
+        for t in range(front.T):
+            start = i * front.nb_cols + t * n_span
+            ph0 = torch.as_tensor(np.mod(residual64 * start, 1.0)
+                                  .astype(np.float32), device=dev)
+            parts.append(chz.channelize_frames(
+                frames[t * front.F:(t + 1) * front.F], ph0)[0])
+        want = torch.cat(parts, dim=1).cpu().numpy()
+        own, carried = chz.channelize_frames(frames, carried)
+        peak = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        err_carried = float(np.abs(got - own.cpu().numpy()).max())
+        if got.shape != want.shape or not err <= 2e-5 * peak \
+                or not err_carried <= 1e-4 * peak:
+            raise AssertionError(
+                f'mesh frontend step {i}: max |diff| {err} (from the '
+                f"channelizer's carried phase {err_carried}) against a "
+                f'peak of {peak}')
+        worst = max(worst, err / peak)
+        worst_carried = max(worst_carried, err_carried / peak)
+    say(card, 'mesh frontend', mesh='2x2',
+        physical_devices=len(mesh.physical_devices), channels=len(freqs),
+        steps=2, super_len=front.super_len, fs1_cols=front.nb_cols,
+        max_err_over_peak=worst, tolerance=2e-5,
+        max_err_over_peak_vs_carried_float32_phase=worst_carried,
+        tolerance_vs_carried_phase=1e-4,
+        moved_bytes=dict(mesh.moved), upload_bytes=front.upload_bytes)
+
+
+def phase_dryrun(card: str) -> None:
+    from dumphfdl_tpu_torch.parallel.sharding import dryrun_multichip
+    n = torch.cuda.device_count()
+    names = [f'cuda:{i}' for i in range(4)] if n >= 4 else ['cuda:0'] * 4
+    t0 = time.perf_counter()
+    detail = dryrun_multichip(4, names)
+    say(card, 'dryrun', wall_s=time.perf_counter() - t0, **detail)
+
+
+def phase_profile(card: str, dev: torch.device) -> None:
+    """The golden capture through the CLI with --profile."""
+    import shutil
+    from dumphfdl_tpu_torch import cli
+    from dumphfdl_tpu_torch.utils import profiling
+    gold = ROOT / 'tests' / 'golden'
+    man = json.loads((gold / 'manifest.json').read_text())
+    out = WORK / 'profile'
+    shutil.rmtree(out, ignore_errors=True)
+    rc = cli.main([
+        '--iq-file', str(gold / man['capture']),
+        '--sample-format', man['format'],
+        '--sample-rate', str(man['sample_rate']),
+        '--centerfreq', str(man['centerfreq'] / 1000),
+        '--profile', str(out),
+        '--output', f'decoded:text:file:path={WORK / "profile.txt"}',
+    ] + [str(f / 1000) for f in man['frequencies']], device=dev)
+    trace = json.loads((out / profiling.TRACE_NAME).read_text())
+    names = [e.get('name', '') for e in trace['traceEvents']
+             if e.get('cat') == 'kernel']
+    k1 = sum('viterbi27_kernel' in n for n in names)
+    k2 = sum('tracker_kernel' in n for n in names)
+    if rc != 0 or k1 < 1 or k2 < 1:
+        raise AssertionError(f'profile: rc {rc}, {k1} K1 and {k2} K2 kernel '
+                             f'events among {len(names)}')
+    say(card, 'profile', trace=str((out / profiling.TRACE_NAME)
+                                   .relative_to(ROOT)),
+        trace_bytes=(out / profiling.TRACE_NAME).stat().st_size,
+        trace_events=len(trace['traceEvents']), kernel_events=len(names),
+        k1_kernel_events=k1, k2_kernel_events=k2)
+
+
+def phase_parity(card: str, dev: torch.device) -> None:
+    """tests/golden/chip_parity.json's scenarios through K1 and K2."""
+    from dumphfdl_tpu_torch.dsp import tracker_cuda
+    from dumphfdl_tpu_torch.ops import fec_cuda
+    from dumphfdl_tpu_torch.tools import chip_parity
+    ref = json.loads((ROOT / 'tests' / 'golden' / 'chip_parity.json')
+                     .read_text())
+    before = fec_cuda.launches, tracker_cuda.launches
+    diffs = chip_parity.compare(chip_parity.tracker_scenario(dev),
+                                chip_parity.viterbi_scenario(dev), ref)
+    got = (fec_cuda.launches - before[0], tracker_cuda.launches - before[1])
+    over = chip_parity.over_tolerance(diffs)
+    if over or got != (1, 2):
+        raise AssertionError(f'parity: float fields over their bound {over}; '
+                             f'K1, K2 launches {got}')
+    say(card, 'parity', integers_and_digests_exact=True,
+        k1_launches=got[0], k2_launches=got[1], max_abs_diff=diffs,
+        tolerance={f: chip_parity.FLOAT_TOLERANCE.get(
+            f, chip_parity.DEFAULT_TOLERANCE) for f in diffs})
+
+
+def phase_multihost(card: str) -> None:
+    """Only what one process can show: two nccl ranks are refused on one
+    device, so no process group is made here (tests/test_torch_multihost.py
+    runs two gloo processes on the CPU)."""
+    from dumphfdl_tpu_torch.parallel import multihost
+    for v in ('DUMPHFDL_COORDINATOR', 'DUMPHFDL_NUM_PROCESSES',
+              'DUMPHFDL_PROCESS_ID'):
+        os.environ.pop(v, None)
+    single = multihost.init_distributed(device='cuda')
+    one = multihost.init_distributed('127.0.0.1:1', 1, 0, device='cuda')
+    sl = multihost.local_channel_slice(512)
+    if single or one or (sl.start, sl.stop) != (0, 512) or \
+            torch.distributed.is_initialized():
+        raise AssertionError(f'multihost: {single}, {one}, {sl}')
+    say(card, 'multihost', single_process_returns=False,
+        local_channel_slice=[sl.start, sl.stop], process_group='not made: '
+        'two nccl ranks cannot share one device')
+
+
+def _ok_line() -> None:
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
 def main() -> int:
+    if sys.argv[1:] not in ([], ['mesh']):
+        raise SystemExit('usage: chip_smoke.py [mesh]')
     dev = require_cuda()
     card = card_line()
     WORK.mkdir(parents=True, exist_ok=True)
     phase_device(card, dev)
     phase_build(card)
+    if sys.argv[1:] == ['mesh']:
+        with _shared_design():
+            cap = _bench_capture(512, 2_160_000, 'scale.cs16')
+            unfused_events = phase_unfused(card, dev, cap)
+            phase_mesh(card, dev, cap, unfused_events)
+            phase_mesh_frontend(card, dev, cap)
+        phase_dryrun(card)
+        print(card)
+        _ok_line()
+        return 0
     k1 = phase_k1(card, dev)
     k2 = phase_k2(card, dev)
     phase_golden(card, dev)
     with _shared_design():
         launches, cap = phase_scale(card, dev)
         taps = phase_k2_taps(card, dev)
-        phase_unfused(card, dev, cap)
+        unfused_events = phase_unfused(card, dev, cap)
+        mesh_launches, k2_mesh = phase_mesh(card, dev, cap, unfused_events)
+        phase_mesh_frontend(card, dev, cap)
     with _shared_design():
         ss_launches, k2_ss = phase_superstep(card, dev)
     taps['launches'] = phase_datadumps(card, dev)
+    phase_dryrun(card)
+    phase_profile(card, dev)
+    phase_parity(card, dev)
+    phase_multihost(card)
     # launches: each wrapper's count from 0 over a path's first pass.  K1 and
     # K2 on the scale phase's fused path (and, launches_superstep, on the
     # superstep path), K2 at the superstep's shape on the superstep path
     # (the eager first block and the one recorded into the graph; its
     # replays and the kernel events of the profiled graph pass beside it),
+    # K2 at a mesh shard's shape on the 2x2 mesh pass (shards x blocks),
     # the taps instantiation on the --datadumps path
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
     k2_ss['launches'] = ss_launches['tracker']
-    for d, name in ((k1, 'viterbi27'), (k2, 'tracker'),
-                    (k2_ss, 'tracker'), (taps, 'tracker_taps')):
+    k2_mesh['launches'] = mesh_launches['tracker']
+    for d, name in ((k1, 'viterbi27'), (k2, 'tracker'), (k2_ss, 'tracker'),
+                    (k2_mesh, 'tracker'), (taps, 'tracker_taps')):
         d['launches_superstep'] = ss_launches[name]
-    if not all(d['launches'] > 0 for d in (k1, k2, k2_ss, taps)) \
-            or not k1['launches_superstep']:
+        # over the first pass on the 2x2 mesh (the taps variant only runs
+        # with --datadumps)
+        d['launches_mesh'] = mesh_launches.get(name, 0)
+    if not all(d['launches'] > 0 for d in (k1, k2, k2_ss, k2_mesh, taps)) \
+            or not k1['launches_superstep'] \
+            or not (k1['launches_mesh'] and k2['launches_mesh']):
         raise AssertionError('a kernel of a path was never launched there')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'bound_bytes', 'bound_ops', 'chain_steps', 'launches_superstep')
+            'bound_bytes', 'bound_ops', 'chain_steps', 'launches_superstep',
+            'launches_mesh')
     print(card)
     print(json.dumps({'kernels': [
         {k: d[k] for k in (*keys, *sorted(set(d) - set(keys)))}
-        for d in (k1, k2, k2_ss, taps)]}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        for d in (k1, k2, k2_ss, k2_mesh, taps)]}))
+    _ok_line()
     return 0
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``dumphfdl_tpu/app.py``: the offline file path
 (``run_file``) and the live paths (``run_stream`` for complex chunks,
 ``run_stream_raw`` for buffers in the SDR's native width), each through
-the superstep when the receiver engaged it.
+the superstep when the receiver engaged it, or, with a mesh configured,
+through the sharded receiver (parallel/sharding.py), which takes host
+chunks and uploads each shard's span itself.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ class AppConfig:
     sample_format: str = 'CF32'
     output_queue_hwm: int = 1000
     nf_stats_interval: int = 10
-    mesh: str | None = None             # multi-device mesh: not ported
+    # multi-device mesh: 'TIMExCHAN' takes cuda:0 .. cuda:(T*K-1); a
+    # parallel.sharding.DeviceMesh is used as it is (tests, chip_smoke.py)
+    mesh: object = None
     # demod block length in 5400-sps samples (<= 16200): longer blocks
     # amortize the per-block dispatch at the cost of event latency
     demod_block_len: int = 5400
@@ -62,14 +66,27 @@ def compute_centerfreq(frequencies: list[int], sample_rate: int,
     return centerfreq
 
 
+def _mesh_for(mesh):
+    """cfg.mesh -> a DeviceMesh: a 'TIMExCHAN' string takes the first T*K
+    CUDA devices and raises when fewer are visible (no smaller mesh, no
+    CPU, no device named twice); a DeviceMesh is taken as it is."""
+    from .parallel.sharding import DeviceMesh, parse_mesh
+    if isinstance(mesh, DeviceMesh):
+        return mesh
+    t_ax, k_ax = parse_mesh(mesh)
+    have = torch.cuda.device_count()
+    if t_ax * k_ax > have:
+        raise ValueError(f'mesh {mesh} needs {t_ax * k_ax} devices, '
+                         f'have {have}')
+    return DeviceMesh([[f'cuda:{t * k_ax + k}' for k in range(k_ax)]
+                       for t in range(t_ax)])
+
+
 class HfdlApp:
     def __init__(self, cfg: AppConfig, ctx: ProtocolContext,
                  outputs: OutputManager, statsd=None):
         if cfg.device is None:
             raise ValueError('AppConfig.device is required')
-        if cfg.mesh:
-            raise NotImplementedError('--mesh is not yet ported to '
-                                      'dumphfdl_tpu_torch')
         self.cfg = cfg
         self.ctx = ctx
         self.outputs = outputs
@@ -77,10 +94,19 @@ class HfdlApp:
         centerfreq = compute_centerfreq(cfg.frequencies, cfg.sample_rate,
                                         cfg.centerfreq)
         self.centerfreq = centerfreq + cfg.freq_offset
-        self.receiver = WidebandReceiver(cfg.sample_rate, self.centerfreq,
-                                         list(cfg.frequencies), cfg.device,
-                                         block_len=cfg.demod_block_len,
-                                         sample_format=cfg.sample_format)
+        if cfg.mesh:
+            # decode on a ('time', 'chan') mesh: the frontend shards over
+            # time with a halo copy, the demodulator's channels over all
+            # shards
+            from .parallel.sharding import ShardedWidebandReceiver
+            self.receiver = ShardedWidebandReceiver(
+                cfg.sample_rate, self.centerfreq, list(cfg.frequencies),
+                _mesh_for(cfg.mesh), block_len=cfg.demod_block_len)
+        else:
+            self.receiver = WidebandReceiver(
+                cfg.sample_rate, self.centerfreq, list(cfg.frequencies),
+                cfg.device, block_len=cfg.demod_block_len,
+                sample_format=cfg.sample_format)
         self.stream_epoch = time_mod.time()
         self.frames_decoded = 0     # FCS-valid frames parsed
         self.frames_junk = 0        # FCS-fail frames (false locks/errors)
@@ -164,7 +190,7 @@ class HfdlApp:
         A background thread reads and uploads ahead of the device work
         (io/ingest.py); the integer formats upload in their native width
         and convert on the device."""
-        from .io import ingest
+        from .io import formats, ingest
         fmt = (sample_format or self.cfg.sample_format).upper()
         fh = sys.stdin.buffer if path == '-' else open(path, 'rb')
         self._start_nf_stats()
@@ -183,7 +209,14 @@ class HfdlApp:
                 return 0
             raw_iter = ingest.file_chunks(fh, fmt, self.cfg.read_buffer_size,
                                           stop=self._stop)
-            for xd in ingest.uploaded_stream(raw_iter, fmt, self.cfg.device):
+            if self.cfg.mesh:
+                # host chunks: the sharded receiver cuts each super-block
+                # into its shards' spans, so samples go up once, sharded
+                stream = (formats.convert(raw, fmt) for raw in raw_iter)
+            else:
+                stream = ingest.uploaded_stream(raw_iter, fmt,
+                                                self.cfg.device)
+            for xd in stream:
                 if self._stop.is_set():
                     break
                 self.handle_events(self.receiver.process(xd))
@@ -226,7 +259,10 @@ class HfdlApp:
                     max(self.cfg.sample_rate // 8, 1)))))
         src = ingest.StreamIngest(sample_iter, block,
                                   ring_capacity=4 * block, stop=self._stop)
-        if ss is None:
+        if self.cfg.mesh:
+            stream = src.blocks()       # the sharded receiver uploads
+            step = self.receiver.process
+        elif ss is None:
             stream = ingest.uploaded_stream(src.blocks(), 'CF32',
                                             self.cfg.device, packed=packed)
             step = self.receiver.process

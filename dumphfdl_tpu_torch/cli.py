@@ -1,9 +1,12 @@
 """Command-line interface of the PyTorch port.
 
 Same flag surface as ``dumphfdl_tpu/cli.py`` (which mirrors the reference
-decoder, main.c:378-425).  File, stdin and SoapySDR input and --datadumps
-are ported; --mesh and --profile raise a "not yet ported" error.  The
-decoder runs on the CUDA device and refuses to start without one.
+decoder, main.c:378-425).  The decoder runs on the CUDA device and refuses
+to start without one; --mesh TIMExCHAN decodes on the first TIME*CHAN CUDA
+devices (parallel/sharding.py) and refuses to start with fewer; --profile
+DIR records a torch.profiler trace of the run.  With DUMPHFDL_COORDINATOR,
+DUMPHFDL_NUM_PROCESSES and DUMPHFDL_PROCESS_ID set, each process decodes its
+slice of the channel list (parallel/multihost.py).
 
     python -m dumphfdl_tpu_torch.cli --iq-file CAPTURE --sample-format CS16 \
         --sample-rate 48000 --centerfreq 8930 8912 8942
@@ -29,8 +32,6 @@ from .utils.statsd import StatsdClient
 from . import __version__
 from .app import AppConfig, HfdlApp
 from .device import require_cuda
-
-_NOT_PORTED = ('mesh', 'profile')
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                           'event latency, and engage the superstep where '
                           'the sample rate aligns')
     src.add_argument('--mesh', metavar='TIMExCHAN', default=None,
-                     help='multi-device mesh (not yet ported)')
+                     help="decode on a ('time', 'chan') mesh of the first "
+                          'TIME*CHAN CUDA devices, e.g. 2x2: the frontend '
+                          'shards over time, the demodulator over channels')
 
     out = p.add_argument_group('output options')
     out.add_argument('--output', action='append', default=[],
@@ -123,7 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help='dump per-stage DSP signals to raw files in the '
                           'current directory (takes the unfused path)')
     obs.add_argument('--profile', metavar='DIR',
-                     help='record a profiler trace (not yet ported)')
+                     help='record a torch.profiler trace of the run (host '
+                          'operations and the card\'s kernels) as a Chrome '
+                          'trace in DIR (the gperftools -DPROFILING bracket '
+                          'of the reference, main.c:766-768)')
 
     p.add_argument('frequencies', nargs='*', type=float, metavar='FREQ',
                    help='HFDL channel frequencies in kHz')
@@ -136,6 +142,21 @@ def build_app(args, device: torch.device) -> HfdlApp:
     if not args.sample_rate:
         raise SystemExit('error: --sample-rate is required')
     freqs_hz = [int(round(f * 1000)) for f in args.frequencies]
+
+    # multi-host deployment (DUMPHFDL_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID):
+    # each host ingests and demodulates its contiguous slice of the channel
+    # list and runs its own output stack (the counterpart of the reference's
+    # N instances plus ZMQ aggregator, README.md:969)
+    from .parallel import multihost
+    if multihost.init_distributed(device=device):
+        sl = multihost.local_channel_slice(len(freqs_hz))
+        print(f'multi-host: process {multihost.process_index()}/'
+              f'{multihost.process_count()}, channels [{sl.start}:{sl.stop}] '
+              f'of {len(freqs_hz)}', file=sys.stderr)
+        freqs_hz = freqs_hz[sl]
+        if not freqs_hz:
+            raise SystemExit('error: no channels assigned to this host')
+
     options = ProtocolOptions(
         output_raw_frames=args.raw_frames,
         output_mpdus=args.output_mpdus,
@@ -181,6 +202,7 @@ def build_app(args, device: torch.device) -> HfdlApp:
         sample_format=args.sample_format or 'CF32',
         output_queue_hwm=hwm,
         nf_stats_interval=args.noise_floor_stats_interval,
+        mesh=args.mesh,
         demod_block_len=args.demod_block,
     )
     app = HfdlApp(cfg, ctx, outputs, statsd=statsd)
@@ -197,10 +219,6 @@ def main(argv: list[str] | None = None, device=None) -> int:
     """Run the decoder; device defaults to the CUDA device (required)."""
     args = build_parser().parse_args(argv)
     print(f'dumphfdl-tpu-torch {__version__}', file=sys.stderr)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f'error: --{flag} is not yet ported to '
-                             'dumphfdl_tpu_torch')
     if not args.iq_file and args.soapysdr is None:
         raise SystemExit('error: no input selected (--iq-file / --soapysdr)')
     if args.iq_file and not args.sample_format:
@@ -209,6 +227,13 @@ def main(argv: list[str] | None = None, device=None) -> int:
     app = build_app(args, device)
     signal.signal(signal.SIGINT, lambda *_: app.stop())
     signal.signal(signal.SIGTERM, lambda *_: app.stop())
+    prof = None
+    if args.profile:
+        from .utils import profiling
+        prof = profiling.profiler(device)
+        prof.start()
+        print(f'profiling to {args.profile} (view {profiling.TRACE_NAME} '
+              'with Perfetto or chrome://tracing)', file=sys.stderr)
     try:
         if args.iq_file:
             rc = app.run_file(args.iq_file, args.sample_format)
@@ -230,6 +255,9 @@ def main(argv: list[str] | None = None, device=None) -> int:
             # upload (half the transfer bytes)
             rc = app.run_stream(src.stream(), packed=src.is_integer_format)
     finally:
+        if prof is not None:
+            prof.stop()
+            profiling.export(prof, args.profile)
         dumps = app.receiver.bank.dumps
         if dumps is not None:
             dumps.close()

@@ -7,6 +7,8 @@ instead of falling back to the CPU.  Only the tests pass ``'cpu'``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,14 @@ def require_cuda() -> torch.device:
         raise RuntimeError('no CUDA device: dumphfdl_tpu_torch needs an '
                            'NVIDIA GPU (torch.cuda.is_available() is False)')
     return torch.device('cuda', torch.cuda.current_device())
+
+
+def on(device):
+    """Context that makes a CUDA `device` the current one (a launch through
+    ``ctypes``, ``torch.cuda.Event().record()`` and a graph capture all act
+    on the current device, whatever device their tensors lie on); nothing
+    for a CPU device."""
+    device = torch.device(device)
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

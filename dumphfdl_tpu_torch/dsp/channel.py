@@ -286,8 +286,10 @@ def _start_readback(ev_table: torch.Tensor) -> _Readback:
         return _Readback(ev_table, ev_table, None)
     host = torch.empty(ev_table.shape, dtype=ev_table.dtype, pin_memory=True)
     host.copy_(ev_table, non_blocking=True)
+    # the copy ran on the table's device; record there, not on whatever
+    # device is current
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(ev_table.device))
     return _Readback(ev_table, host, done)
 
 
@@ -336,6 +338,13 @@ class ChannelBank:
 
     def process(self, samples) -> list[FrameEvent]:
         """Feed a (C, T) block at 5400 sps; returns completed frames."""
+        return self._collect(self.launch(samples))
+
+    def launch(self, samples) -> '_Readback | None':
+        """The device half of process: run the block, start its event
+        table's copy to the host, and return the previous block's readback
+        for _collect (None on the first block).  A mesh launches every
+        shard's block before it collects any."""
         x = torch.as_tensor(samples, dtype=torch.complex64, device=self.device)
         num_steps = int(x.shape[1] // C.SPS)
         self._check_block_invariant(num_steps)
@@ -360,7 +369,7 @@ class ChannelBank:
             self.dumps.write('costas_dphi', taps[:, :, 0].T)
             self.dumps.write('costas_err', taps[:, :, 1].T)
             self.dumps.write('symsync_tau', taps[:, :, 2].T)
-        return self._finish_step(ev_table, counters)
+        return self._swap_pending(ev_table, counters)
 
     def process_fused(self, chan) -> list[FrameEvent]:
         """Consume one out_chunk from a Channelizer's fs1 ring: resample +
@@ -378,15 +387,21 @@ class ChannelBank:
         chan.consume_chunk(new_rs)
         return self._finish_step(ev_table, counters)
 
-    def _finish_step(self, ev_table, counters) -> list[FrameEvent]:
+    def _swap_pending(self, ev_table, counters) -> '_Readback | None':
         self.last_counters = counters    # (C, 4): A2, M1, M1-miss, overflow
         prev, self._pending = self._pending, _start_readback(ev_table)
-        return self._collect_events(prev) if prev is not None else []
+        return prev
+
+    def _collect(self, rb: '_Readback | None') -> list[FrameEvent]:
+        return self._collect_events(rb) if rb is not None else []
+
+    def _finish_step(self, ev_table, counters) -> list[FrameEvent]:
+        return self._collect(self._swap_pending(ev_table, counters))
 
     def drain_events(self) -> list[FrameEvent]:
         """Collect the deferred block's events."""
         prev, self._pending = self._pending, None
-        return self._collect_events(prev) if prev is not None else []
+        return self._collect(prev)
 
     def _collect_events(self, rb: _Readback) -> list[FrameEvent]:
         """Decode completed frames of one block from its event table."""
@@ -458,3 +473,120 @@ class ChannelBank:
                     events[r] = events[r]._replace(
                         pdu=pdu, fcs_ok=crc.pdu_fcs_ok(pdu))
         return events
+
+
+class _StageRows:
+    """Stands in for the DumpSet of one shard's bank: keeps the shard's
+    rows of each --datadumps stage of a block, for the meshed bank to join
+    along the channel axis."""
+
+    def __init__(self):
+        self.rows: dict[str, np.ndarray] = {}
+
+    def write(self, stage: str, data: np.ndarray) -> None:
+        self.rows[stage] = np.asarray(data)
+
+
+class MeshChannelBank:
+    """A ChannelBank on a device mesh (parallel/sharding.DeviceMesh): the
+    channel axis, padded to a multiple of the shard count, is cut into
+    equal blocks and each shard runs a ChannelBank of its own over its
+    block, on its device and in its stream.  Channels are independent, so
+    no data crosses between shards; events come back with global channel
+    numbers, in ascending channel order, those of padding channels dropped.
+
+    Block b of the channel axis lies on mesh.demod_order()[b] ('chan'
+    major, 'time' minor: the layout the sharded frontend's reshard leaves).
+    A bank shards only on a mesh it is given; nothing shards by itself."""
+
+    def __init__(self, num_channels: int, mesh):
+        self.num_channels = int(num_channels)
+        self.mesh = mesh
+        self.shards = mesh.demod_order()
+        n = len(self.shards)
+        self._c = -(-self.num_channels // n) * n
+        self.rows_per_shard = self._c // n
+        self.banks = []
+        for sh in self.shards:
+            with sh.run():        # a shard's state is made in its stream
+                self.banks.append(ChannelBank(self.rows_per_shard,
+                                              sh.device))
+        self.fused_event_decode = self.banks[0].fused_event_decode
+        self._dumps = None
+
+    @property
+    def dumps(self):
+        """The DumpSet of --datadumps: each block's stages are written for
+        the whole padded channel axis, the shards' rows joined in channel
+        order (padding channels too)."""
+        return self._dumps
+
+    @dumps.setter
+    def dumps(self, dumps) -> None:
+        self._dumps = dumps
+        for bank in self.banks:
+            bank.dumps = None if dumps is None else _StageRows()
+
+    def process(self, samples) -> list[FrameEvent]:
+        """Feed a (C, T) or (C_pad, T) host block at 5400 sps, cut into each
+        shard's (rows, T) block on its device, padding channels silent;
+        returns completed frames."""
+        x = np.asarray(samples, np.complex64)
+        if x.shape[0] != self._c:
+            x = np.concatenate([x, np.zeros((self._c - x.shape[0],
+                                             x.shape[1]), np.complex64)])
+        r = self.rows_per_shard
+        out = []
+        for b, sh in enumerate(self.shards):
+            with sh.run():
+                out.append(torch.as_tensor(x[b * r:(b + 1) * r].copy(),
+                                           device=sh.device))
+        return self.process_shards(out)
+
+    def process_shards(self, blocks: list[torch.Tensor]) -> list[FrameEvent]:
+        """Feed each shard its (rows, T) block, already on its device (in
+        demod order).  Every shard's block is launched before any shard's
+        previous block is collected, so one shard's readback and event
+        decode overlap the others' device work."""
+        pending = []
+        for sh, bank, x in zip(self.shards, self.banks, blocks):
+            with sh.run():
+                pending.append(bank.launch(x))
+        if self._dumps is not None:
+            for stage in self.banks[0].dumps.rows:
+                self._dumps.write(stage, np.concatenate(
+                    [bank.dumps.rows[stage] for bank in self.banks]))
+        return self._gather(lambda bank, rb: bank._collect(rb), pending)
+
+    def drain_events(self) -> list[FrameEvent]:
+        return self._gather(lambda bank, _: bank.drain_events(),
+                            [None] * len(self.banks))
+
+    def _gather(self, collect, pending) -> list[FrameEvent]:
+        events = []
+        for b, (sh, bank, rb) in enumerate(zip(self.shards, self.banks,
+                                               pending)):
+            with sh.run():
+                got = collect(bank, rb)
+            first = b * self.rows_per_shard
+            events.extend(ev._replace(channel=first + ev.channel)
+                          for ev in got
+                          if first + ev.channel < self.num_channels)
+        return events
+
+    @property
+    def last_counters(self) -> torch.Tensor | None:
+        """(num_channels, 4) counters of the last block, on the host."""
+        if self.banks[0].last_counters is None:
+            return None
+        return torch.cat([bank.last_counters.cpu() for bank in self.banks]
+                         )[:self.num_channels]
+
+    @property
+    def tracker_state(self) -> TrackerState:
+        """The shards' tracker states joined along the channel axis, on the
+        host (padding channels included)."""
+        states = [bank.tracker_state for bank in self.banks]
+        return TrackerState(*[
+            None if vals[0] is None else torch.cat([v.cpu() for v in vals])
+            for vals in zip(*states)])

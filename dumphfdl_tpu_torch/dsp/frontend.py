@@ -201,57 +201,52 @@ def _design_tables(geo: DdcGeometry, fs: int, centerfreq: int,
     return coarse, residual64, w, idx.astype(np.int32), hwin
 
 
-class Channelizer:
-    """Streaming wideband -> per-channel converter: wideband ring ->
-    overlap-save DDC -> fs1 ring.  The fused demod step resamples straight
-    from that ring (the exact rational cursor goes to
-    ChannelBank.process_fused); process_device resamples here and returns
-    5400-sps blocks."""
+def ddc_frames(geo: DdcGeometry, window_images: int, idx: torch.Tensor,
+               hwin: torch.Tensor, residual: torch.Tensor,
+               frames: torch.Tensor, phase0: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Core DDC on explicit (B, fft_size) overlap-save frames for the rows
+    of one set of channel tables (idx, hwin (rows, W); residual, phase0
+    (rows,)), all on the frames' device -> ((rows, B*post_input_size) fs1
+    samples, new mixer phase)."""
+    w, L, D = window_images, geo.fft_inv_size, geo.decimation
+    n_frames, rows = frames.shape[0], idx.shape[0]
+    spec = torch.fft.fft(frames, dim=1)                    # (B, N)
+    prod = spec[:, idx] * hwin[None, :, :]                 # (B, rows, W)
+    folded = prod.reshape(n_frames, rows, w, L).sum(dim=2)
+    # decimation-in-frequency fold; 1/D matches fastddc.c:194
+    time = torch.fft.ifft(folded, dim=2) / D               # (B, rows, L)
+    out = time[:, :, geo.scrap:].permute(1, 0, 2).reshape(rows, -1)
+    # residual mixer: |residual| <= v*D/(2N) cycles/sample, so the
+    # float32 ramp stays small over a batch
+    n = out.shape[1]
+    ph = phase0[:, None] + residual[:, None] * torch.arange(
+        n, dtype=torch.float32, device=frames.device)[None, :]
+    out = out * torch.exp((-2j * np.pi) * ph)
+    new_phase = torch.remainder(phase0 + residual * n, 1.0)
+    return out, new_phase
 
-    def __init__(self, sample_rate: int, centerfreq: int,
-                 frequencies: list[int], device,
-                 out_chunk: int = 5400,
-                 rows: int | None = None):
+
+class Fs1Resampler:
+    """The fs1 side of a channelizer on one device: a modular (rows, R)
+    ring of narrowband samples at fs1 = sample_rate / decimation, fed by
+    _append_fs1, and the gather-interpolate resampler that drains it into
+    (rows, out_chunk) blocks at 5400 sps (_drain_resampler) or hands its
+    exact cursor to the fused demod step (rs_device_state, consume_chunk).
+
+    append_room: the fs1 samples of ring space kept for appends beside
+    what one out_chunk reads.  A Channelizer is one of these behind its own
+    DDC; a mesh shard holds one bare, fed by the sharded frontend."""
+
+    def __init__(self, sample_rate: int, decimation: int, rows: int, device,
+                 out_chunk: int, append_room: int):
         self.device = torch.device(device)
         self.fs = int(sample_rate)
-        self.centerfreq = int(centerfreq)
-        decimation = compute_fft_decimation_rate(self.fs)
-        self.geo = compute_geometry(decimation,
-                                    C.CHANNEL_TRANSITION_BW_HZ / self.fs)
         self.fs1 = self.fs / decimation
-        self.plans = [plan_channel(self.geo, self.fs, centerfreq, f)
-                      for f in frequencies]
-        self.num_channels = len(frequencies)
-        self.rows = self.num_channels if rows is None else int(rows)
-        assert self.rows >= self.num_channels
+        self.rows = int(rows)
         self.out_chunk = out_chunk
-
-        self._coarse, residual64, self.window_images, idx, hwin = \
-            _design_tables(self.geo, self.fs, self.centerfreq,
-                           tuple(frequencies), self.rows)
-        geo = self.geo
-        w, L = self.window_images, geo.fft_inv_size
-        self.tables_from_numpy(idx, hwin, residual64)
-
-        # frame-batch cap: per-frame working set is the (B, rows, W)
-        # gather + product plus the (B, N) frames/spectrum pair
-        budget = 1 << 30
-        per_frame = 2 * 8 * self.rows * w * L + 2 * 8 * geo.fft_size
-        self._max_frames = max(1, min(64, 1 << int(np.log2(
-            max(1, budget // per_frame)))))
-
-        # wideband ring: the largest batch window plus a big upload
-        self._rw = 1 << int(np.ceil(np.log2(
-            geo.overlap_length + (self._max_frames + 8) * geo.input_size + 1)))
-        self._wb_ring = None
-        self._wb_fill = geo.overlap_length   # pre-seeded overlap-save tail
-        self._wb_wcur = geo.overlap_length
-        self._wb_rcur = 0
-        self._mixer_phase = torch.zeros(self.rows, dtype=torch.float32,
-                                        device=self.device)
-
-        # fs1 ring + resampler: fs1/5400 = fs/(D*5400) as an exact reduced
-        # rational num/den, so positions are exact integer arithmetic
+        # fs1/5400 = fs/(D*5400) as an exact reduced rational num/den, so
+        # positions are exact integer arithmetic
         self._out_count = 0            # total 5400-sps samples emitted
         self.ratio = self.fs1 / C.INTERNAL_RATE
         den0 = decimation * C.INTERNAL_RATE
@@ -264,8 +259,7 @@ class Channelizer:
         self._bank = _resampler_bank(int(round(self.ratio * 1000)),
                                      self._rs_taps)
         self._bank_dev = None          # device copy, for _resample
-        need = int(out_chunk * self.ratio) + self._rs_taps \
-            + (self._max_frames + 2) * geo.post_input_size + 64
+        need = int(out_chunk * self.ratio) + self._rs_taps + append_room + 64
         self._r1 = 1 << int(np.ceil(np.log2(need)))
         self._fs1_ring = None
         self._fs1_wcur = 0
@@ -274,92 +268,15 @@ class Channelizer:
         self._ring_global_start = 0    # global fs1-sample index at _fs1_start
         self._rs_state = None
 
-    def tables_from_numpy(self, idx: np.ndarray, hwin: np.ndarray,
-                          residual64: np.ndarray) -> None:
-        """Install the channel tables: bin-window indices (rows, W), kernel
-        window (rows, W) complex64 and residual mixer rates (rows,) in
-        cycles per fs1 sample (float64, used as float32)."""
-        self._idx_np = np.asarray(idx, np.int32)
-        self._hwin_np = np.asarray(hwin, np.complex64)
-        self._residual64 = np.asarray(residual64, np.float64)
-        self._idx = torch.as_tensor(self._idx_np.astype(np.int64),
-                                    device=self.device)
-        self._hwin = torch.as_tensor(self._hwin_np, device=self.device)
-        self._residual_dev = torch.as_tensor(
-            self._residual64.astype(np.float32), device=self.device)
-
-    def _ensure_rings(self) -> None:
-        if self._wb_ring is None:
-            self._wb_ring = torch.zeros(self._rw, dtype=torch.complex64,
-                                        device=self.device)
+    def _ensure_fs1_ring(self) -> None:
+        if self._fs1_ring is None:
             self._fs1_ring = torch.zeros((self.rows, self._r1),
                                          dtype=torch.complex64,
                                          device=self.device)
 
-    def ddc_frames(self, frames: torch.Tensor, phase0: torch.Tensor
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Core DDC on explicit (B, fft_size) overlap-save frames ->
-        ((rows, B*post_input_size) fs1 samples, new mixer phase)."""
-        geo = self.geo
-        w, L, D = self.window_images, geo.fft_inv_size, geo.decimation
-        n_frames = frames.shape[0]
-        spec = torch.fft.fft(frames, dim=1)                    # (B, N)
-        prod = spec[:, self._idx] * self._hwin[None, :, :]     # (B, rows, W)
-        folded = prod.reshape(n_frames, self.rows, w, L).sum(dim=2)
-        # decimation-in-frequency fold; 1/D matches fastddc.c:194
-        time = torch.fft.ifft(folded, dim=2) / D               # (B, rows, L)
-        out = time[:, :, geo.scrap:].permute(1, 0, 2).reshape(self.rows, -1)
-        # residual mixer: |residual| <= v*D/(2N) cycles/sample, so the
-        # float32 ramp stays small over a batch
-        n = out.shape[1]
-        res = self._residual_dev
-        ph = phase0[:, None] + res[:, None] * torch.arange(
-            n, dtype=torch.float32, device=frames.device)[None, :]
-        out = out * torch.exp((-2j * np.pi) * ph)
-        new_phase = torch.remainder(phase0 + res * n, 1.0)
-        return out, new_phase
-
-    # ---- streaming API ----
-
-    def ingest(self, samples) -> None:
-        """Append wideband samples (numpy, or a tensor already on the
-        device) to the wideband ring."""
-        self._ensure_rings()
-        x = torch.as_tensor(samples, dtype=torch.complex64, device=self.device)
-        n = int(x.shape[0])
-        if not n:
-            return
-        if self._wb_fill + n > self._rw:
-            raise RuntimeError(
-                f'wideband ring overflow: fill {self._wb_fill} + {n} '
-                f'> {self._rw} (upload chunk too large for geometry)')
-        cols = (self._wb_wcur + torch.arange(n, device=self.device)) % self._rw
-        self._wb_ring[cols] = x
-        self._wb_wcur = (self._wb_wcur + n) % self._rw
-        self._wb_fill += n
-
-    def channelize_available(self) -> None:
-        """Channelize every complete frame batch into the fs1 ring."""
-        geo = self.geo
-        dev = self.device
-        while (avail := (self._wb_fill - geo.overlap_length)
-                // geo.input_size) > 0:
-            n_now = 1 << int(np.log2(min(avail, self._max_frames)))
-            n_out = n_now * geo.post_input_size
-            if self._fs1_fill + n_out > self._r1:
-                raise RuntimeError('fs1 ring overflow (consumer stalled)')
-            fr = (self._wb_rcur
-                  + torch.arange(n_now, device=dev)[:, None] * geo.input_size
-                  + torch.arange(geo.fft_size, device=dev)[None, :]) % self._rw
-            out, self._mixer_phase = self.ddc_frames(self._wb_ring[fr],
-                                                     self._mixer_phase)
-            self._append_fs1(out)
-            self._wb_rcur = (self._wb_rcur + n_now * geo.input_size) % self._rw
-            self._wb_fill -= n_now * geo.input_size
-
     def _append_fs1(self, chunk: torch.Tensor) -> None:
         """Append an (rows, n) fs1 chunk to the modular fs1 ring."""
-        self._ensure_rings()
+        self._ensure_fs1_ring()
         n = int(chunk.shape[1])
         if self._fs1_fill + n > self._r1:
             raise RuntimeError('fs1 ring overflow (consumer stalled)')
@@ -368,18 +285,6 @@ class Channelizer:
         self._fs1_ring[:, cols] = chunk
         self._fs1_wcur = (self._fs1_wcur + n) % self._r1
         self._fs1_fill += n
-
-    def channelize_frames(self, frames, phase0: torch.Tensor | None = None
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Offline helper: channelize explicit (B, fft_size) overlap-save
-        frames (numpy or tensor) from mixer phase phase0 (zeros)."""
-        if phase0 is None:
-            phase0 = torch.zeros(self.rows, dtype=torch.float32,
-                                 device=self.device)
-        return self.ddc_frames(torch.as_tensor(
-            frames, dtype=torch.complex64, device=self.device), phase0)
-
-    # ---- unfused path: resample here, hand out 5400-sps blocks ----
 
     def _resample(self, ring: torch.Tensor, params, n_out: int
                   ) -> torch.Tensor:
@@ -458,20 +363,6 @@ class Channelizer:
                 self._ring_global_start += drop
         return chunks
 
-    def process_device(self, samples) -> list[torch.Tensor]:
-        """Feed wideband samples; returns (rows, out_chunk) blocks at 5400
-        sps on the device (>= 0 full chunks; the rest stays buffered)."""
-        self.ingest(samples)
-        self.channelize_available()
-        return self._drain_resampler()
-
-    def process(self, samples) -> np.ndarray:
-        """process_device + host materialization (offline/test use)."""
-        chunks = self.process_device(samples)
-        if not chunks:
-            return np.zeros((self.rows, 0), dtype=np.complex64)
-        return np.concatenate([c.cpu().numpy() for c in chunks], axis=1)
-
     @property
     def fused_ready(self) -> bool:
         """True when the exact-rational resampler cursor fits int32 (as the
@@ -511,3 +402,139 @@ class Channelizer:
             self._fs1_start = (self._fs1_start + drop) % self._r1
             self._fs1_fill -= drop
             self._ring_global_start += drop
+
+
+class Channelizer(Fs1Resampler):
+    """Streaming wideband -> per-channel converter: wideband ring ->
+    overlap-save DDC -> fs1 ring (Fs1Resampler).  The fused demod step
+    resamples straight from that ring (the exact rational cursor goes to
+    ChannelBank.process_fused); process_device resamples here and returns
+    5400-sps blocks."""
+
+    def __init__(self, sample_rate: int, centerfreq: int,
+                 frequencies: list[int], device,
+                 out_chunk: int = 5400,
+                 rows: int | None = None):
+        fs = int(sample_rate)
+        decimation = compute_fft_decimation_rate(fs)
+        self.geo = geo = compute_geometry(decimation,
+                                          C.CHANNEL_TRANSITION_BW_HZ / fs)
+        self.centerfreq = int(centerfreq)
+        self.plans = [plan_channel(geo, fs, centerfreq, f)
+                      for f in frequencies]
+        self.num_channels = len(frequencies)
+        rows = self.num_channels if rows is None else int(rows)
+        assert rows >= self.num_channels
+
+        self._coarse, residual64, self.window_images, idx, hwin = \
+            _design_tables(geo, fs, self.centerfreq, tuple(frequencies), rows)
+        w, L = self.window_images, geo.fft_inv_size
+
+        # frame-batch cap: per-frame working set is the (B, rows, W)
+        # gather + product plus the (B, N) frames/spectrum pair
+        budget = 1 << 30
+        per_frame = 2 * 8 * rows * w * L + 2 * 8 * geo.fft_size
+        self._max_frames = max(1, min(64, 1 << int(np.log2(
+            max(1, budget // per_frame)))))
+        super().__init__(fs, decimation, rows, device, out_chunk,
+                         (self._max_frames + 2) * geo.post_input_size)
+        self.tables_from_numpy(idx, hwin, residual64)
+
+        # wideband ring: the largest batch window plus a big upload
+        self._rw = 1 << int(np.ceil(np.log2(
+            geo.overlap_length + (self._max_frames + 8) * geo.input_size + 1)))
+        self._wb_ring = None
+        self._wb_fill = geo.overlap_length   # pre-seeded overlap-save tail
+        self._wb_wcur = geo.overlap_length
+        self._wb_rcur = 0
+        self._mixer_phase = torch.zeros(self.rows, dtype=torch.float32,
+                                        device=self.device)
+
+    def tables_from_numpy(self, idx: np.ndarray, hwin: np.ndarray,
+                          residual64: np.ndarray) -> None:
+        """Install the channel tables: bin-window indices (rows, W), kernel
+        window (rows, W) complex64 and residual mixer rates (rows,) in
+        cycles per fs1 sample (float64, used as float32)."""
+        self._idx_np = np.asarray(idx, np.int32)
+        self._hwin_np = np.asarray(hwin, np.complex64)
+        self._residual64 = np.asarray(residual64, np.float64)
+        self._idx = torch.as_tensor(self._idx_np.astype(np.int64),
+                                    device=self.device)
+        self._hwin = torch.as_tensor(self._hwin_np, device=self.device)
+        self._residual_dev = torch.as_tensor(
+            self._residual64.astype(np.float32), device=self.device)
+
+    def _ensure_rings(self) -> None:
+        if self._wb_ring is None:
+            self._wb_ring = torch.zeros(self._rw, dtype=torch.complex64,
+                                        device=self.device)
+        self._ensure_fs1_ring()
+
+    def ddc_frames(self, frames: torch.Tensor, phase0: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """ddc_frames (above) with this channelizer's tables."""
+        return ddc_frames(self.geo, self.window_images, self._idx,
+                          self._hwin, self._residual_dev, frames, phase0)
+
+    # ---- streaming API ----
+
+    def ingest(self, samples) -> None:
+        """Append wideband samples (numpy, or a tensor already on the
+        device) to the wideband ring."""
+        self._ensure_rings()
+        x = torch.as_tensor(samples, dtype=torch.complex64, device=self.device)
+        n = int(x.shape[0])
+        if not n:
+            return
+        if self._wb_fill + n > self._rw:
+            raise RuntimeError(
+                f'wideband ring overflow: fill {self._wb_fill} + {n} '
+                f'> {self._rw} (upload chunk too large for geometry)')
+        cols = (self._wb_wcur + torch.arange(n, device=self.device)) % self._rw
+        self._wb_ring[cols] = x
+        self._wb_wcur = (self._wb_wcur + n) % self._rw
+        self._wb_fill += n
+
+    def channelize_available(self) -> None:
+        """Channelize every complete frame batch into the fs1 ring."""
+        geo = self.geo
+        dev = self.device
+        while (avail := (self._wb_fill - geo.overlap_length)
+                // geo.input_size) > 0:
+            n_now = 1 << int(np.log2(min(avail, self._max_frames)))
+            n_out = n_now * geo.post_input_size
+            if self._fs1_fill + n_out > self._r1:
+                raise RuntimeError('fs1 ring overflow (consumer stalled)')
+            fr = (self._wb_rcur
+                  + torch.arange(n_now, device=dev)[:, None] * geo.input_size
+                  + torch.arange(geo.fft_size, device=dev)[None, :]) % self._rw
+            out, self._mixer_phase = self.ddc_frames(self._wb_ring[fr],
+                                                     self._mixer_phase)
+            self._append_fs1(out)
+            self._wb_rcur = (self._wb_rcur + n_now * geo.input_size) % self._rw
+            self._wb_fill -= n_now * geo.input_size
+
+    def channelize_frames(self, frames, phase0: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Offline helper: channelize explicit (B, fft_size) overlap-save
+        frames (numpy or tensor) from mixer phase phase0 (zeros)."""
+        if phase0 is None:
+            phase0 = torch.zeros(self.rows, dtype=torch.float32,
+                                 device=self.device)
+        return self.ddc_frames(torch.as_tensor(
+            frames, dtype=torch.complex64, device=self.device), phase0)
+
+    def process_device(self, samples) -> list[torch.Tensor]:
+        """Feed wideband samples; returns (rows, out_chunk) blocks at 5400
+        sps on the device (>= 0 full chunks; the rest stays buffered)."""
+        self.ingest(samples)
+        self.channelize_available()
+        return self._drain_resampler()
+
+    def process(self, samples) -> np.ndarray:
+        """process_device + host materialization (offline/test use)."""
+        chunks = self.process_device(samples)
+        if not chunks:
+            return np.zeros((self.rows, 0), dtype=np.complex64)
+        return np.concatenate([c.cpu().numpy() for c in chunks], axis=1)
+

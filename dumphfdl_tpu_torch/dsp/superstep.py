@@ -48,6 +48,7 @@ import math
 import torch
 
 from .. import constants as C
+from ..device import on
 from ..io import formats
 from ..io import ingest
 from .channel import (MAX_BLOCK_SYMBOLS, AgcState, _ring_slide,
@@ -226,9 +227,10 @@ class SuperstepEngine:
         launch it records here; what the graph runs afterwards is counted
         in self.replays, not in the wrapper's count.  Other threads (the
         uploader) keep working while this thread records."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
-            self._step()
+        with on(self.device):     # the capture stream is the current device's
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+                self._step()
         self._graph = graph
 
     def verify_graph(self, packed: torch.Tensor) -> int:

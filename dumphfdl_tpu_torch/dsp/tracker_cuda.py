@@ -23,6 +23,7 @@ import torch
 
 from .. import constants as C
 from .. import sequences as seq
+from ..device import on
 from ..ops import _build
 from . import tracker as trk
 from .tracker import (A1_SEARCH, CT, EV_FIELDS, HALO, K_EVENTS,
@@ -102,8 +103,11 @@ def _kernel_tables(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 def _padding_state(n: int, device) -> TrackerState:
     """Fresh state of the n dummy channels that fill the last tile (made
     once per size: the kernel copies its state planes, so this is never
-    written)."""
-    return trk.tracker_init(n, device)
+    written).  Later calls may come from other streams of the device, so
+    the fills are waited for here."""
+    state = trk.tracker_init(n, device)
+    torch.cuda.current_stream(device).synchronize()
+    return state
 
 
 _SF = ('tau', 'rate', 'phi', 'dphi', 'freq_err', 'signal_level',
@@ -180,13 +184,14 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
 
     lib = _build.library()
     ptr = lambda a: a.data_ptr()
-    err = lib.hfdl_tracker(
-        ptr(act), ptr(xc), ptr(lvl), ptr(shifts), ptr(banks), ptr(eq0),
-        ptr(seqs), ptr(sf), ptr(si), ptr(eq), ptr(win), ptr(sym_re),
-        ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt),
-        ptr(taps) if debug_taps else None, c_pad, c, t_len, num_steps,
-        trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on(dev):                 # the launch goes to the current device
+        err = lib.hfdl_tracker(
+            ptr(act), ptr(xc), ptr(lvl), ptr(shifts), ptr(banks), ptr(eq0),
+            ptr(seqs), ptr(sf), ptr(si), ptr(eq), ptr(win), ptr(sym_re),
+            ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt),
+            ptr(taps) if debug_taps else None, c_pad, c, t_len, num_steps,
+            trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'tracker kernel')
     if debug_taps:
         taps_launches += 1
@@ -221,8 +226,10 @@ def trig_mismatches(device) -> int:
     plain version's ``torch.cos``/``torch.sin`` then agree with it too."""
     out = torch.zeros((1,), dtype=torch.int64, device=device)
     lib = _build.library()
-    err = lib.hfdl_tracker_trig_mismatches(
-        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    with on(out.device):
+        err = lib.hfdl_tracker_trig_mismatches(
+            out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(lib, err, 'tracker trig check')
     return int(out.item())
 

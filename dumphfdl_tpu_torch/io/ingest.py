@@ -30,7 +30,11 @@ from .native import SampleRing
 RAW_DTYPES = {'CS16': torch.int16, 'CU8': torch.uint8,
               'CF32': torch.complex64}
 _RAW_NUMPY = {'CS16': np.int16, 'CU8': np.uint8, 'CF32': np.complex64}
+# what put_raw carries: the raw formats, and the small tables and phases
+# a mesh uploads per shard
 _TORCH_OF = {np.dtype(v): RAW_DTYPES[k] for k, v in _RAW_NUMPY.items()}
+_TORCH_OF.update({np.dtype(np.float32): torch.float32,
+                  np.dtype(np.int64): torch.int64})
 
 _CS16_SCALE = float(np.float32(1.0) / np.float32(32767.5))
 _QUANT_SCALE = float(np.float32(1.0) / np.float32(32767.0))

@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..device import on
 from . import _build
 from . import fec
 
@@ -42,8 +43,10 @@ def viterbi_decode(soft: torch.Tensor, nbits: int) -> torch.Tensor:
     if batch == 0:
         return out
     lib = _build.library()
-    err = lib.hfdl_viterbi(chips.data_ptr(), out.data_ptr(), batch, nbits,
-                           torch.cuda.current_stream(soft.device).cuda_stream)
+    with on(soft.device):         # the launch goes to the current device
+        err = lib.hfdl_viterbi(
+            chips.data_ptr(), out.data_ptr(), batch, nbits,
+            torch.cuda.current_stream(soft.device).cuda_stream)
     _build.check(lib, err, 'viterbi kernel')
     launches += 1
     return out
@@ -79,12 +82,13 @@ def viterbi_decode_many(softs: list[torch.Tensor],
         return outs
     lib = _build.library()
     n = len(order)
-    err = lib.hfdl_viterbi_many(
-        (ctypes.c_void_p * n)(*[chips[i].data_ptr() for i in order]),
-        (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in order]),
-        (ctypes.c_int * n)(*[chips[i].shape[0] for i in order]),
-        (ctypes.c_int * n)(*[nbits[i] for i in order]),
-        n, torch.cuda.current_stream(dev).cuda_stream)
+    with on(dev):
+        err = lib.hfdl_viterbi_many(
+            (ctypes.c_void_p * n)(*[chips[i].data_ptr() for i in order]),
+            (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in order]),
+            (ctypes.c_int * n)(*[chips[i].shape[0] for i in order]),
+            (ctypes.c_int * n)(*[nbits[i] for i in order]),
+            n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'viterbi kernel')
     launches += 1
     return outs

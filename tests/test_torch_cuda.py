@@ -142,3 +142,52 @@ def test_tracker_kernel_debug_taps(cuda):
         assert torch.equal(k[1].sym, other[1].sym)
         assert torch.equal(k[1].data_idx, other[1].data_idx)
         assert torch.equal(k[2], other[2]) and torch.equal(k[3], other[3])
+
+
+def test_wrappers_launch_on_their_tensors_device(cuda):
+    """Both wrappers, given tensors on the last visible CUDA device while
+    device 0 is the current one, launch there (a launch on device 0 with
+    another device's stream and pointers fails or computes nothing) and
+    stay exact against the plain versions; so does a mesh shard's event
+    readback."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f'{n} CUDA device visible: needs two, to launch on one '
+                    'that is not the current device')
+    from dumphfdl_tpu_torch.dsp.channel import _start_readback
+    dev = torch.device('cuda', n - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(9)
+    nbits = C.MODES[1].framebits
+    soft = torch.as_tensor(rng.integers(0, 256, (16, 2 * nbits))
+                           .astype(np.uint8), device=dev)
+    before = fec_cuda.launches
+    got = fec_cuda.viterbi_decode(soft, nbits)
+    many = fec_cuda.viterbi_decode_many([soft], [nbits])
+    assert fec_cuda.launches == before + 2
+    assert got.device == dev and torch.cuda.current_device() == 0
+    want = fec.viterbi_decode(soft, nbits)
+    assert torch.equal(got, want) and torch.equal(many[0], want)
+
+    nch, steps = 40, 150
+    t = steps * 3 + trk.HALO
+    x = torch.as_tensor((rng.standard_normal((nch, t))
+                         + 1j * rng.standard_normal((nch, t)))
+                        .astype(np.complex64), device=dev)
+    lvl = torch.as_tensor((np.abs(rng.standard_normal((nch, t))) + 0.5)
+                          .astype(np.float32), device=dev)
+    st = trk.tracker_init(nch, dev)
+    assert tracker_cuda.trig_mismatches(dev) == 0
+    before = tracker_cuda.launches
+    k = tracker_cuda.tracker_block(st, x, lvl, steps, use_acq=False)
+    assert tracker_cuda.launches == before + 1
+    p = trk.tracker_block(st, x, lvl, steps, None)
+    assert k[1].sym.device == dev and torch.cuda.current_device() == 0
+    for a, b in zip(k[0][:-1], p[0][:-1]):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert torch.equal(k[1].sym, p[1].sym)
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    rb = _start_readback(k[2])
+    rb.done.synchronize()
+    assert torch.equal(rb.host_table, p[2].cpu())

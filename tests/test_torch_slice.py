@@ -100,18 +100,22 @@ def test_cli_text_matches_jax_cli(tmp_path, monkeypatch, jax_fused_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """--mesh and --profile are all that is left; --soapysdr gets as far as
-    looking for the SoapySDR bindings, --datadumps as far as its input."""
-    for flag in (['--mesh', '2x4'], ['--profile', str(tmp_path)]):
-        with pytest.raises(SystemExit, match='not yet ported'):
-            cli.main(flag + ['--sample-rate', '48000', '8912'], device='cpu')
-    assert cli._NOT_PORTED == ('mesh', 'profile')
+    """Nothing of the CLI is left unported: the list of refused flags is
+    gone, --mesh gets as far as counting CUDA devices, --soapysdr as far
+    as looking for the SoapySDR bindings, --datadumps and --profile as far
+    as their input."""
+    assert not hasattr(cli, '_NOT_PORTED')
+    if torch.cuda.device_count() < 8:
+        with pytest.raises(ValueError, match='mesh 2x4 needs 8 devices'):
+            cli.main(['--mesh', '2x4', '--iq-file',
+                      str(GOLDEN / MANIFEST['capture']), '--sample-format',
+                      'CS16', '--sample-rate', '48000', '8912'], device='cpu')
     with pytest.raises(SystemExit, match='SoapySDR python bindings'):
         cli.main(['--soapysdr', 'driver=rtlsdr', '--sample-rate', '48000',
                   '8912'], device='cpu')
-    with pytest.raises(SystemExit, match='no input selected'):
-        cli.main(['--datadumps', '--sample-rate', '48000', '8912'],
-                 device='cpu')
+    for flag in (['--datadumps'], ['--profile', str(tmp_path)]):
+        with pytest.raises(SystemExit, match='no input selected'):
+            cli.main(flag + ['--sample-rate', '48000', '8912'], device='cpu')
 
 
 def test_cli_requires_a_cuda_device():
@@ -159,6 +163,11 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / 'dumphfdl_tpu_torch').rglob('*.py')) \
         + [ROOT / 'chip_smoke.py']
     assert len(files) > 40
+    assert {'dumphfdl_tpu_torch/parallel/__init__.py',
+            'dumphfdl_tpu_torch/parallel/sharding.py',
+            'dumphfdl_tpu_torch/parallel/multihost.py',
+            'dumphfdl_tpu_torch/utils/profiling.py'} <= {
+        str(f.relative_to(ROOT)) for f in files}
     bad = {str(f.relative_to(ROOT)): sorted(
         _import_roots(f) & {'dumphfdl_tpu', 'jax', 'jaxlib'}) for f in files}
     assert {f: r for f, r in bad.items() if r} == {}
