@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py mesh      # only phases 1, 2, 8 and 12-14: the
-                                    # multi-device path and the pass it is
-                                    # held to (for a machine with four cards)
+                                    # multi-device paths and the pass they
+                                    # are held to (for a machine with four
+                                    # cards)
 
 Phases, each printing one line with the card's name and power limit:
 
@@ -85,13 +86,31 @@ Phases, each printing one line with the card's name and power limit:
                K2's wrapper against the plain version on the very blocks a
                shard hands it in its own stream (128 channels x 1800
                symbols, gate on, carried state, two consecutive blocks:
-               exact), and K1 on that shard's event blocks (bit-exact);
+               exact; timed through the wrapper and by the launch alone),
+               and K1 on that shard's event blocks (bit-exact);
 13. mesh frontend - two consecutive ShardedFrontend.step on the 2x2 mesh
                against Channelizer.channelize_frames on one device for the
                same frames: within 2e-5 of the peak where each span starts
                from the sharded frontend's own start phase (float64 on the
                host), within 1e-4 where the channelizer carries its phase
                itself in float32 over the whole block;
+13a. mesh_mp - the same capture on a mesh across processes: child
+               processes (dumphfdl_tpu_torch/tools/mesh_mp.py), each a rank
+               of a torch.distributed group decoding through the app
+               cli.build_app makes.  One card: two processes of two logical
+               shards each on cuda:0 form a 2x2 mesh over gloo, the copies
+               between them staged through pinned host memory.  Four cards:
+               four processes, one card each, over nccl, on 2x2 and 4x1.
+               Every rank reads the same file and gives an exact ledger and
+               the one-process mesh's PDUs (frequency errors within 1e-6
+               Hz); the bytes counted over the ranks equal the one-process
+               mesh's and comm_model()'s; on 2x2 the last rank holds K2 and
+               K1 exact against their plain versions on its own shard
+               blocks (K2 timed through its wrapper and by its launch
+               alone).  The children take over this process's filter
+               tables from a file; a child that fails or outlives its
+               deadline ends the phase (the others are killed), and every
+               collective has a timeout;
 14. dryrun  -- parallel.sharding.dryrun_multichip at its default geometry
                (64 channels at 432 ksps, 8 emitters) on a 2x2 mesh;
 15. profile -- the golden capture through the CLI with --profile: the Chrome
@@ -99,8 +118,8 @@ Phases, each printing one line with the card's name and power limit:
 16. parity  -- the two scenarios of tests/golden/chip_parity.json through K1
                and K2 (tools/chip_parity.py): integers and digests exact,
                floats within their stated bounds;
-17. multihost - the single-process answers of parallel/multihost (two nccl
-               ranks cannot share one card, so no process group is made).
+17. multihost - the single-process answers of parallel/multihost (the
+               process groups are the mesh_mp phase's).
 
 Each kernel's line carries bound_ms, the least time the card could take
 for the same work: the larger of the bytes the function must move over the
@@ -125,6 +144,7 @@ import contextlib
 import json
 import os
 import pathlib
+import pickle
 import subprocess
 import sys
 import time
@@ -134,6 +154,9 @@ import torch
 
 from dumphfdl_tpu_torch import constants as C
 from dumphfdl_tpu_torch.device import require_cuda
+from dumphfdl_tpu_torch.tools.kernel_check import (
+    compare_k2 as _compare_k2, cuda_ms, k1_bound, k2_bound,
+    k2_pair as _k2_pair, timed_ms)
 from dumphfdl_tpu_torch.utils.profiling import device_profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -142,54 +165,6 @@ WORK = ROOT / 'build' / 'smoke'
 # resampler's step at 2.16 Msps) nearest bench.py's 16200
 DEMOD_BLOCK = 16128
 STEPS = DEMOD_BLOCK // C.SPS          # tracker symbols per block (5376)
-
-
-# NVIDIA H100 SXM data sheet: device memory rate, and the float32 rate
-# outside the tensor cores (taken for the integer add-compare-select too)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# operations per step, counted from the kernels' sources: K1 does, for each
-# of the 32 butterflies of a bit, 5 for the branch metric, 4 adds, 2
-# compares and 2 selects; K2 does about 400 float operations per channel
-# and symbol outside a frame's training (interpolations 90, rotations 12,
-# equalizer 120, two cosine/sine pairs 60, arctangent and the loops' updates
-# the rest)
-K1_OPS_PER_BIT = 32 * 13
-K2_OPS_PER_SYMBOL = 400
-
-
-def bound(n_bytes: int, n_ops: int) -> dict:
-    """Roofline bound of a call that must move n_bytes and do n_ops."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_b, t_o),
-                bound_by='bytes' if t_b >= t_o else 'operations',
-                bound_bytes=n_bytes, bound_ops=n_ops)
-
-
-def k1_bound(softs, outs) -> dict:
-    """Chips read once, bits written once; 416 operations per decoded bit.
-    chain_steps: the dependent steps of the longest frame (its bits
-    forward, then a lane's share of the traceback with its merge run)."""
-    n_bytes = sum(a.numel() * a.element_size() for a in (*softs, *outs))
-    longest = max(o.shape[1] for o in outs)
-    return dict(bound(n_bytes, K1_OPS_PER_BIT * sum(o.numel() for o in outs)),
-                chain_steps=longest + -(-(longest - 6) // 32) + 96)
-
-
-def k2_bound(nch: int, t_len: int, n_sym: int, taps: bool = False) -> dict:
-    """What one tracker call must move, in 4-byte words: x (nch, t_len)
-    complex64 in, one level sample per channel and symbol in (the function
-    needs no other of the (nch, t_len) level), sym_re/sym_im/packed
-    (n_sym, c_pad) out, the state planes (8 + 19 + 60 + 4 rows of c_pad)
-    in and out, the shifts (c_pad) in, the event table (44) and counters
-    (4) out, and with taps three more (n_sym, c_pad) planes out.
-    chain_steps: the symbols of a channel, each depending on the one
-    before."""
-    c_pad = -(-nch // 128) * 128
-    words = nch * (2 * t_len + n_sym) \
-        + c_pad * ((6 if taps else 3) * n_sym + 2 * 91 + 1 + 48)
-    return dict(bound(4 * words, K2_OPS_PER_SYMBOL * nch * n_sym),
-                chain_steps=n_sym)
 
 
 def card_line() -> str:
@@ -201,33 +176,6 @@ def card_line() -> str:
 
 def say(card: str, phase: str, **kv) -> None:
     print(f'[{card}] {phase}: ' + json.dumps(kv), flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps launches (after one
-    warm-up call), timed with CUDA events."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def timed_ms(fn):
-    """(fn(), device milliseconds of that one call), CUDA-event timed."""
-    start, end = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def phase_device(card: str, dev: torch.device) -> None:
@@ -297,51 +245,6 @@ def phase_k1(card: str, dev: torch.device) -> dict:
                 replaces='dumphfdl_tpu/ops/fec_pallas.py:50',
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 **bnd)
-
-
-def _close(a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
-    """Max |a-b| after asserting |a-b| <= tol + tol*|b| elementwise."""
-    d = (a - b).abs()
-    if bool((d > tol + tol * b.abs()).any()):
-        raise AssertionError(f'max |diff| {float(d.max())} beyond {tol}')
-    return float(d.max()) if d.numel() else 0.0
-
-
-def _compare_k2(what, s1, o1, e1, c1, s2, o2, e2, c2, tol) -> float:
-    from dumphfdl_tpu_torch.dsp.tracker import TrackerState
-    err = 0.0
-    for f in TrackerState._fields:
-        a, b = getattr(s1, f), getattr(s2, f)
-        if a is None or b is None:
-            if a is not b:
-                raise AssertionError(f'K2 {what}: state field {f} differs')
-        elif a.is_floating_point() or a.is_complex():
-            err = max(err, _close(a, b, tol))
-        elif not torch.equal(a, b):
-            raise AssertionError(f'K2 {what}: state field {f} differs')
-    err = max(err, _close(o1.sym, o2.sym, tol))
-    for name, a, b in (('is_data', o1.is_data, o2.is_data),
-                       ('data_idx', o1.data_idx, o2.data_idx),
-                       ('frame_parity', o1.frame_parity, o2.frame_parity),
-                       ('events', e1, e2), ('counters', c1, c2)):
-        if not torch.equal(a, b):
-            raise AssertionError(f'K2 {what}: {name} differ')
-    return err
-
-
-def _k2_pair(state, x, lvl, steps: int, use_acq: bool):
-    """(wrapper result, plain result, plain ms): the wrapper launches K2;
-    the plain version runs with the tile activity and acq_hit carry the
-    wrapper derives (tracker_cuda.tile_activity)."""
-    from dumphfdl_tpu_torch.dsp import tracker as trk
-    from dumphfdl_tpu_torch.dsp import tracker_cuda as tc
-    before = tc.launches
-    r_k = tc.tracker_block(state, x, lvl, steps, use_acq=use_acq)
-    if tc.launches != before + 1:
-        raise AssertionError('K2 wrapper did not launch its kernel')
-    act, hits = tc.tile_activity(state, x, use_acq)
-    r_p, t_p = timed_ms(lambda: trk.tracker_block(state, x, lvl, steps, act))
-    return r_k, (r_p[0]._replace(acq_hit=hits), *r_p[1:]), t_p
 
 
 def phase_k2(card: str, dev: torch.device) -> dict:
@@ -620,7 +523,7 @@ def _shared_design():
         return done[deployment]
     frontend._design_tables = shared
     try:
-        yield
+        yield done
     finally:
         frontend._design_tables = design
 
@@ -1129,6 +1032,26 @@ def _check_mesh_traffic(rx) -> dict:
                             if k.endswith('_per_s')})
 
 
+def _say_shard_kernels(card: str, checked: dict, **where) -> dict:
+    """Print kernel_check.check_shard_blocks's lines; returns K2's
+    kernels-line entry at a mesh shard's shape (without its launches)."""
+    for k2 in checked['k2']:
+        say(card, 'mesh K2', **where, shard_device=checked['shard_device'],
+            blocks=checked['blocks'], **k2)
+    for k1 in checked['k1']:
+        say(card, 'mesh K1', **where, shard_device=checked['shard_device'],
+            **k1)
+    k2 = checked['k2'][-1]
+    return dict(name='tracker_mesh', route='cuda',
+                source='dumphfdl_tpu_torch/csrc/tracker.cu',
+                replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
+                max_abs_err=0.0, ms=k2['kernel_ms'],
+                kernel_alone_ms=k2['kernel_alone_ms'], plain_ms=k2['plain_ms'],
+                library_ms=None,
+                **{k: k2[k] for k in ('bound_ms', 'bound_by', 'bound_bytes',
+                                      'bound_ops', 'chain_steps')})
+
+
 def _kernels_on_mesh_blocks(card: str, argv, dev, emit_by_chan) -> dict:
     """K2 and K1 at the shapes the 2x2 mesh gives them.  Decodes the
     capture once more on the mesh while recording what every shard hands
@@ -1136,114 +1059,26 @@ def _kernels_on_mesh_blocks(card: str, argv, dev, emit_by_chan) -> dict:
     extended matched-filter block and level, 1800 symbols, gate on, in the
     shard's own stream) and fec_cuda.viterbi_decode_many (an event block's
     soft chips for the eight modes).  Then, for the last shard that decoded
-    frames, holds each wrapper against its plain version on those inputs:
-    K2 on two consecutive blocks, the second the first that completes a
-    frame, and K1 on the shard's event blocks, all exact.  Returns K2's
-    kernels-line entry at this shape (without its launches)."""
-    from dumphfdl_tpu_torch.dsp import tracker as trk
-    from dumphfdl_tpu_torch.dsp import tracker_cuda as tc
-    from dumphfdl_tpu_torch.ops import fec, fec_cuda
-    k2_seen, k1_seen = {}, {}
-    k2_wrapper, k1_wrapper = tc.tracker_block, fec_cuda.viterbi_decode_many
-
-    def shard_of(t):        # a shard is known by the stream its work is in
-        return str(t.device), torch.cuda.current_stream(t.device).cuda_stream
-
-    def k2_recording(state, x, level, num_steps, use_acq=True,
-                     debug_taps=False):
-        k2_seen.setdefault(shard_of(x), []).append(
-            (trk.TrackerState(*[None if v is None else v.clone()
-                                for v in state]),
-             x.clone(), level.clone(), num_steps, use_acq, debug_taps))
-        return k2_wrapper(state, x, level, num_steps, use_acq, debug_taps)
-
-    def k1_recording(softs, nbits):
-        k1_seen.setdefault(shard_of(softs[0]), []).append(
-            ([s.clone() for s in softs], list(nbits)))
-        return k1_wrapper(softs, nbits)
-
-    tc.tracker_block = k2_recording
-    fec_cuda.viterbi_decode_many = k1_recording
-    try:
+    frames, holds each wrapper against its plain version on those inputs
+    (kernel_check.check_shard_blocks): K2 on two consecutive blocks, the
+    second the first that completes a frame, and K1 on the shard's event
+    blocks, all exact; K2 timed through its wrapper and by its launch
+    alone.  Returns K2's kernels-line entry at this shape (without its
+    launches)."""
+    from dumphfdl_tpu_torch.tools import kernel_check
+    with kernel_check.recording() as (k2_seen, k1_seen):
         _, _, app, physical = _mesh_pass(argv, dev, emit_by_chan, 2, 2)
-    finally:
-        tc.tracker_block = k2_wrapper
-        fec_cuda.viterbi_decode_many = k1_wrapper
-    rows = app.receiver.bank.rows_per_shard
-    blocks = {len(v) for v in k2_seen.values()}
-    if len(k2_seen) != 4 or len(blocks) != 1 or not k1_seen or \
-            not set(k1_seen) <= set(k2_seen):
-        raise AssertionError(f'mesh kernels: K2 calls from {len(k2_seen)} '
-                             f'streams ({blocks} blocks each), K1 calls '
-                             f'from {len(k1_seen)}')
-    shard = list(k1_seen)[-1]       # the last one: not the first device
-    seen = k2_seen[shard]
-    with torch.cuda.device(seen[0][1].device):
-        # the first block of this shard that completes a frame, and the one
-        # before it
-        first = None
-        for i, (st, x, lvl, n_sym, use_acq, taps) in enumerate(seen):
-            if (tuple(x.shape), n_sym, use_acq, taps) != \
-                    ((rows, 5400 + trk.HALO), 1800, True, False):
-                raise AssertionError(f'mesh K2: a shard handed the wrapper '
-                                     f'{tuple(x.shape)}, {n_sym}, {use_acq}')
-            ev = k2_wrapper(st, x, lvl, n_sym, use_acq)[2]
-            if first is None and bool(
-                    (ev.reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)[:, :, 0]
-                     > 0.5).any()):
-                first = i
-        if not first:
-            raise AssertionError(f'mesh K2: no block after the first '
-                                 f'completes a frame ({first})')
-        for i in (first - 1, first):
-            st, x, lvl, n_sym, _, _ = seen[i]
-            act, _ = tc.tile_activity(st, x, True)
-            r_k, r_p, t_p = _k2_pair(st, x, lvl, n_sym, use_acq=True)
-            if _compare_k2(f'mesh block {i}', *r_k, *r_p, tol=0.0) != 0.0:
-                raise AssertionError('mesh K2: not exact')
-            ev = r_k[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)
-            n_ev = int((ev[:, :, 0] > 0.5).sum())
-            tiles = int(act.sum())
-            t_k = cuda_ms(lambda: tc.tracker_block(st, x, lvl, n_sym,
-                                                   use_acq=True), 5)
-            # the work of this block's data: its active tiles' channels
-            bnd = k2_bound(tiles * trk.CT, x.shape[1], n_sym)
-            say(card, 'mesh K2', mesh='2x2', shard_device=shard[0],
-                physical_devices=physical, block=i, blocks=len(seen),
-                channels=x.shape[0], symbols=n_sym, gate=True,
-                active_tiles=tiles, tiles=len(act), events=n_ev,
-                max_abs_err=0.0, kernel_ms=t_k, plain_ms=t_p, **bnd)
-        if n_ev < 1 or tiles < 1:
-            raise AssertionError('mesh K2: the compared block carried no '
-                                 'frame')
-        # K1 on the event blocks the same shard decoded
-        for j, (softs, nbits) in enumerate(k1_seen[shard][:2]):
-            before = fec_cuda.launches
-            got = fec_cuda.viterbi_decode_many(softs, nbits)
-            if fec_cuda.launches != before + 1:
-                raise AssertionError('mesh K1: the wrapper did not launch')
-            plain, t_p1 = timed_ms(lambda: [fec.viterbi_decode(s_, n_)
-                                            for s_, n_ in zip(softs, nbits)])
-            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
-                raise AssertionError(f'mesh K1: event block {j} differs from '
-                                     'the plain version')
-            t_k1 = cuda_ms(lambda: fec_cuda.viterbi_decode_many(softs, nbits),
-                           20)
-            say(card, 'mesh K1', mesh='2x2', shard_device=shard[0],
-                event_block=j, event_blocks=len(k1_seen[shard]),
-                frames=[int(s_.shape[0]) for s_ in softs], nbits=nbits,
-                bit_exact=True, kernel_ms=t_k1, plain_ms=t_p1,
-                **k1_bound(softs, got))
-    return dict(name='tracker_mesh', route='cuda',
-                source='dumphfdl_tpu_torch/csrc/tracker.cu',
-                replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
-                max_abs_err=0.0, ms=t_k, plain_ms=t_p, library_ms=None, **bnd)
+    checked = kernel_check.check_shard_blocks(
+        k2_seen, k1_seen, app.receiver.bank.rows_per_shard, 4)
+    return _say_shard_kernels(card, checked, mesh='2x2',
+                              physical_devices=physical)
 
 
 def phase_mesh(card: str, dev: torch.device, cap, unfused_events) -> dict:
     """The 512-channel capture on a 2x2, a 1x1 and a 4x1 mesh.  Returns
     (the wrappers' launch counts over the first 2x2 pass, K2's kernels-line
-    entry at a shard's shape)."""
+    entry at a shard's shape, each mesh's first pass: its PDU events and
+    the bytes it moved between shards)."""
     from dumphfdl_tpu_torch.dsp import channel, tracker_cuda
     from dumphfdl_tpu_torch.ops import fec_cuda
     path, freqs, center, emit_by_chan, duration, _ = cap
@@ -1261,7 +1096,7 @@ def phase_mesh(card: str, dev: torch.device, cap, unfused_events) -> dict:
         collects.append(1)
         return fused_collect(*a, **kw)
 
-    launches = None
+    launches, passes = None, {}
     for t, k in ((2, 2), (1, 1), (4, 1)):
         for d in range(n_dev):
             torch.cuda.reset_peak_memory_stats(d)
@@ -1286,6 +1121,9 @@ def phase_mesh(card: str, dev: torch.device, cap, unfused_events) -> dict:
                                  f'unfused single-device pass (freq_err '
                                  f'{ferr})')
         traffic = _check_mesh_traffic(rx)
+        passes[f'{t}x{k}'] = dict(events=events, moved=dict(rx.mesh.moved),
+                                  super_blocks=rx.frontend.steps,
+                                  comm_model=rx.comm_model())
         blocks = rx.resamplers[0]._out_count // 5400
         shards_with_events = len({e.channel // rx.bank.rows_per_shard
                                   for e in events})
@@ -1314,7 +1152,7 @@ def phase_mesh(card: str, dev: torch.device, cap, unfused_events) -> dict:
         if launches is None:
             launches = got_launches
             k2_mesh = _kernels_on_mesh_blocks(card, argv, dev, emit_by_chan)
-    return launches, k2_mesh
+    return launches, k2_mesh, passes
 
 
 def phase_mesh_frontend(card: str, dev: torch.device, cap) -> None:
@@ -1381,6 +1219,194 @@ def phase_mesh_frontend(card: str, dev: torch.device, cap) -> None:
         moved_bytes=dict(mesh.moved), upload_bytes=front.upload_bytes)
 
 
+# how long a rank of the cross-process mesh may wait in one collective, and
+# how long a child of the mesh_mp phase may run in all
+MP_GROUP_TIMEOUT_S = 180
+MP_CHILD_DEADLINE_S = 600
+
+
+def _mp_layout() -> tuple[str, int, list[str], list[str]]:
+    """(backend, ranks, each rank's device, meshes) of the mesh_mp phase:
+    four processes on cuda:0..3 over nccl, 2x2 and 4x1, where four cards
+    are visible; else two processes sharing cuda:0 over gloo (nccl refuses
+    two ranks on one card), two logical shards each, 2x2."""
+    if torch.cuda.device_count() >= 4:
+        return 'nccl', 4, [f'cuda:{r}' for r in range(4)], ['2x2', '4x1']
+    return 'gloo', 2, ['cuda:0', 'cuda:0'], ['2x2']
+
+
+def _run_ranks(spec: str, backend: str, devices: list[str], argv: list[str],
+               design: pathlib.Path, check_kernels: bool) -> list[dict]:
+    """Run the mesh_mp child (dumphfdl_tpu_torch/tools/mesh_mp.py) once per
+    rank over localhost and return each rank's JSON result.  Each child's
+    output goes to a file under WORK; a child that fails or outlives
+    MP_CHILD_DEADLINE_S ends the phase: the others are killed and the phase
+    raises."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    n = len(devices)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('DUMPHFDL_')}
+    env.update(PYTHONPATH=str(ROOT), DUMPHFDL_COORDINATOR=f'127.0.0.1:{port}',
+               DUMPHFDL_NUM_PROCESSES=str(n))
+    # all ranks are on this host
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    per_rank = 4 // n if spec == '2x2' else 1
+    procs, logs = [], []
+    for r, d in enumerate(devices):
+        out = WORK / f'mesh_mp.{spec}.{r}.out'
+        err = WORK / f'mesh_mp.{spec}.{r}.err'
+        logs.append((out, err))
+        cmd = [sys.executable, '-m', 'dumphfdl_tpu_torch.tools.mesh_mp',
+               '--mesh', spec, '--shards-per-rank', str(per_rank),
+               '--device', d, '--backend', backend,
+               '--timeout', str(MP_GROUP_TIMEOUT_S), '--design', str(design),
+               '--passes', '2', '--profile'] \
+            + (['--check-kernels'] if check_kernels else []) + ['--'] \
+            + [a.replace('mesh_mp.txt', f'mesh_mp.{spec}.{r}.txt')
+               for a in argv]
+        with open(out, 'w') as fo, open(err, 'w') as fe:
+            procs.append(subprocess.Popen(
+                cmd, cwd=ROOT, stdout=fo, stderr=fe,
+                env={**env, 'DUMPHFDL_PROCESS_ID': str(r)}))
+    deadline = time.monotonic() + MP_CHILD_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll()]
+            if bad or time.monotonic() > deadline:
+                r = bad[0] if bad else None
+                tail = logs[r][1].read_text()[-3000:] if bad else ''
+                raise AssertionError(
+                    f'mesh_mp {spec}: ' + (f'rank {r} exited with '
+                                           f'{procs[r].returncode}: {tail}'
+                                           if bad else 'children outlived '
+                                           f'{MP_CHILD_DEADLINE_S} s'))
+            time.sleep(0.5)
+        for r, p in enumerate(procs):
+            if p.returncode:
+                raise AssertionError(f'mesh_mp {spec}: rank {r} exited with '
+                                     f'{p.returncode}: '
+                                     f'{logs[r][1].read_text()[-3000:]}')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [json.loads(out.read_text().strip().splitlines()[-1])
+            for out, _ in logs]
+
+
+def phase_mesh_mp(card: str, cap, mesh_passes: dict, design: dict) -> dict:
+    """The 512-channel capture of the mesh phase on a mesh across
+    processes, each process one rank of a torch.distributed group that
+    decodes through the app cli.build_app makes (tools/mesh_mp.py).  On one
+    card two processes of two logical shards each form a 2x2 mesh over
+    gloo, their copies staged through pinned host memory; on four cards four
+    processes, one card each, over nccl, form a 2x2 and a 4x1 mesh.  Every
+    rank reads the same file and must give an exact ledger and the
+    one-process mesh's PDUs (frequency errors within 1e-6 Hz); the bytes
+    counted over the ranks must equal the one-process mesh's and
+    comm_model()'s; on the 2x2 mesh the last rank holds K2 and K1 exact
+    against their plain versions on its own shard blocks.  Returns the
+    wrappers' launches summed over the ranks' first 2x2 pass."""
+    from dumphfdl_tpu_torch.dsp.channel import FrameEvent
+    path, freqs, center, emit_by_chan, duration, _ = cap
+    argv = _argv(path, 2_160_000, center, freqs, 5400, 'mesh_mp.txt')
+    backend, n, devices, specs = _mp_layout()
+    # the children take over the filter tables this process designed
+    design_file = WORK / 'mesh_mp_design.pkl'
+    with open(design_file, 'wb') as f:
+        pickle.dump({dep: t for dep, t in design.items()
+                     if dep[3] == tuple(freqs)}, f)
+    launches = None
+    for spec in specs:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(spec, backend, devices, argv, design_file,
+                           check_kernels=spec == '2x2')
+        phase_s = time.perf_counter() - t0
+        ref = mesh_passes[spec]
+        want = sorted((e.channel, e.mode, e.pdu) for e in ref['events'])
+        want_ferr = {e.channel: e.freq_err_hz for e in ref['events']}
+        first = [r['passes'][0] for r in ranks]
+        ledgers, ferr = [], 0.0
+        for r, p in zip(ranks, first):
+            evs = [FrameEvent(*f[:9], bytes.fromhex(f[9]) if f[9] else None,
+                              f[10]) for f in p['events']]
+            led = _ledger(evs, emit_by_chan)
+            got = [e for e in evs if e.pdu]
+            if not led['exact'] or \
+                    sorted((e.channel, e.mode, e.pdu) for e in got) != want:
+                raise AssertionError(f'mesh_mp {spec} rank {r["rank"]}: '
+                                     f'ledger {led}, or PDUs differ from the '
+                                     'one-process pass')
+            ferr = max(ferr, max(abs(e.freq_err_hz - want_ferr[e.channel])
+                                 for e in got))
+            ledgers.append(led)
+        if not ferr <= 1e-6:
+            raise AssertionError(f'mesh_mp {spec}: frequency errors differ '
+                                 f'from the one-process pass by {ferr} Hz')
+        moved, received = {}, {}
+        for p in first:
+            for k, v in p['moved'].items():
+                moved[k] = moved.get(k, 0) + v
+            for k, v in p['received'].items():
+                received[k] = received.get(k, 0) + v
+        model, steps = ref['comm_model'], ref['super_blocks']
+        # every copy of these meshes crosses between ranks, so what the
+        # ranks received is what they sent
+        if moved != ref['moved'] or received != moved \
+                or any(p['super_blocks'] != steps for p in first) or moved != {
+                'halo': steps * model['halo_bytes_per_superblock'],
+                'reshard': steps * model['reshard_bytes_per_superblock']} \
+                or sum(p['upload_bytes'] for p in first) != \
+                steps * model['upload_bytes_per_superblock']:
+            raise AssertionError(f'mesh_mp {spec}: moved {moved} over the '
+                                 f'ranks, the one-process pass {ref["moved"]}')
+        got_launches = {k: sum(p['launches'][k] for p in first)
+                        for k in ('viterbi27', 'tracker')}
+        blocks = first[0]['demod_blocks']
+        shards = len(first[0]['local_shards'])
+        if any(p['launches']['tracker'] != shards * blocks
+               or not p['launches']['viterbi27'] for p in first):
+            raise AssertionError(f'mesh_mp {spec}: launches '
+                                 f'{[p["launches"] for p in first]} in '
+                                 f'{blocks} blocks, {shards} shards a rank')
+        say(card, 'mesh_mp', mesh=spec, processes=n, backend=backend,
+            transport=ranks[0]['transport'],
+            devices=[r['device'] for r in ranks], channels=len(freqs),
+            sample_rate=2_160_000, demod_block=5400, capture_s=duration,
+            phase_s=phase_s,
+            wall_s=[p['wall_s'] for p in first],
+            warm_wall_s=[r['passes'][1]['wall_s'] for r in ranks],
+            profiled_wall_s=[r['profiled']['wall_s'] for r in ranks],
+            device_events=[r['profiled']['device_events'] for r in ranks],
+            busy_ms=[r['profiled']['busy_ms'] for r in ranks],
+            by_kind_rank0=ranks[0]['profiled']['by_kind'],
+            launches=[p['launches'] for p in first], demod_blocks=blocks,
+            super_blocks=steps, moved_bytes=moved,
+            moved_by_rank=[p['moved'] for p in first],
+            copies_by_rank=[p['copies'] for p in first],
+            received_by_rank=[p['received'] for p in first],
+            staged_by_rank=[p['staged'] for p in first],
+            event_gather_bytes=[p['gather_bytes'] for p in first],
+            upload_bytes=[p['upload_bytes'] for p in first],
+            moved_equal_one_process_and_comm_model=True,
+            pdus_equal_one_process=True, max_freq_err_diff_hz=ferr,
+            ledger_exact_on_every_rank=True,
+            frames_ok=[led['frames_ok'] for led in ledgers])
+        checked = next((r['kernels'] for r in ranks if 'kernels' in r), None)
+        if spec == '2x2':
+            if checked is None:
+                raise AssertionError('mesh_mp: no rank checked the kernels')
+            _say_shard_kernels(card, checked, mesh='mesh_mp 2x2',
+                               rank=n - 1, backend=backend)
+            launches = got_launches
+    return launches
+
+
 def phase_dryrun(card: str) -> None:
     from dumphfdl_tpu_torch.parallel.sharding import dryrun_multichip
     n = torch.cuda.device_count()
@@ -1444,9 +1470,11 @@ def phase_parity(card: str, dev: torch.device) -> None:
 
 
 def phase_multihost(card: str) -> None:
-    """Only what one process can show: two nccl ranks are refused on one
-    device, so no process group is made here (tests/test_torch_multihost.py
-    runs two gloo processes on the CPU)."""
+    """The single-process answers of parallel/multihost.  Process groups
+    are made by the mesh_mp phase's children: two gloo ranks sharing one
+    card (nccl refuses two ranks on one device) or, with four cards, four
+    nccl ranks; tests/test_torch_multihost.py and test_torch_mesh_mp.py run
+    two gloo processes on the CPU."""
     from dumphfdl_tpu_torch.parallel import multihost
     for v in ('DUMPHFDL_COORDINATOR', 'DUMPHFDL_NUM_PROCESSES',
               'DUMPHFDL_PROCESS_ID'):
@@ -1458,8 +1486,11 @@ def phase_multihost(card: str) -> None:
             torch.distributed.is_initialized():
         raise AssertionError(f'multihost: {single}, {one}, {sl}')
     say(card, 'multihost', single_process_returns=False,
-        local_channel_slice=[sl.start, sl.stop], process_group='not made: '
-        'two nccl ranks cannot share one device')
+        local_channel_slice=[sl.start, sl.stop],
+        process_groups='made by the mesh_mp phase: ' + (
+            'four nccl ranks, one card each' if _mp_layout()[0] == 'nccl'
+            else 'two gloo ranks sharing cuda:0 (nccl refuses two ranks on '
+            'one device)'))
 
 
 def _ok_line() -> None:
@@ -1477,11 +1508,12 @@ def main() -> int:
     phase_device(card, dev)
     phase_build(card)
     if sys.argv[1:] == ['mesh']:
-        with _shared_design():
+        with _shared_design() as design:
             cap = _bench_capture(512, 2_160_000, 'scale.cs16')
             unfused_events = phase_unfused(card, dev, cap)
-            phase_mesh(card, dev, cap, unfused_events)
+            _, _, mesh_passes = phase_mesh(card, dev, cap, unfused_events)
             phase_mesh_frontend(card, dev, cap)
+            phase_mesh_mp(card, cap, mesh_passes, design)
         phase_dryrun(card)
         print(card)
         _ok_line()
@@ -1489,12 +1521,14 @@ def main() -> int:
     k1 = phase_k1(card, dev)
     k2 = phase_k2(card, dev)
     phase_golden(card, dev)
-    with _shared_design():
+    with _shared_design() as design:
         launches, cap = phase_scale(card, dev)
         taps = phase_k2_taps(card, dev)
         unfused_events = phase_unfused(card, dev, cap)
-        mesh_launches, k2_mesh = phase_mesh(card, dev, cap, unfused_events)
+        mesh_launches, k2_mesh, mesh_passes = phase_mesh(card, dev, cap,
+                                                         unfused_events)
         phase_mesh_frontend(card, dev, cap)
+        mp_launches = phase_mesh_mp(card, cap, mesh_passes, design)
     with _shared_design():
         ss_launches, k2_ss = phase_superstep(card, dev)
     taps['launches'] = phase_datadumps(card, dev)
@@ -1508,7 +1542,8 @@ def main() -> int:
     # (the eager first block and the one recorded into the graph; its
     # replays and the kernel events of the profiled graph pass beside it),
     # K2 at a mesh shard's shape on the 2x2 mesh pass (shards x blocks),
-    # the taps instantiation on the --datadumps path
+    # the taps instantiation on the --datadumps path; launches_mesh_mp sums
+    # the ranks' first pass on the cross-process 2x2 mesh
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
     k2_ss['launches'] = ss_launches['tracker']
     k2_mesh['launches'] = mesh_launches['tracker']
@@ -1518,14 +1553,16 @@ def main() -> int:
         # over the first pass on the 2x2 mesh (the taps variant only runs
         # with --datadumps)
         d['launches_mesh'] = mesh_launches.get(name, 0)
+        d['launches_mesh_mp'] = mp_launches.get(name, 0)
     if not all(d['launches'] > 0 for d in (k1, k2, k2_ss, k2_mesh, taps)) \
             or not k1['launches_superstep'] \
-            or not (k1['launches_mesh'] and k2['launches_mesh']):
+            or not (k1['launches_mesh'] and k2['launches_mesh']) \
+            or not (k1['launches_mesh_mp'] and k2['launches_mesh_mp']):
         raise AssertionError('a kernel of a path was never launched there')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'bound_bytes', 'bound_ops', 'chain_steps', 'launches_superstep',
-            'launches_mesh')
+            'launches_mesh', 'launches_mesh_mp')
     print(card)
     print(json.dumps({'kernels': [
         {k: d[k] for k in (*keys, *sorted(set(d) - set(keys)))}

@@ -43,8 +43,9 @@ class AppConfig:
     sample_format: str = 'CF32'
     output_queue_hwm: int = 1000
     nf_stats_interval: int = 10
-    # multi-device mesh: 'TIMExCHAN' takes cuda:0 .. cuda:(T*K-1); a
-    # parallel.sharding.DeviceMesh is used as it is (tests, chip_smoke.py)
+    # multi-device mesh: 'TIMExCHAN' takes cuda:0 .. cuda:(T*K-1), or in a
+    # multi-process job one shard per process; a parallel.sharding.
+    # DeviceMesh is used as it is (tests, chip_smoke.py)
     mesh: object = None
     # demod block length in 5400-sps samples (<= 16200): longer blocks
     # amortize the per-block dispatch at the cost of event latency
@@ -66,20 +67,29 @@ def compute_centerfreq(frequencies: list[int], sample_rate: int,
     return centerfreq
 
 
-def _mesh_for(mesh):
-    """cfg.mesh -> a DeviceMesh: a 'TIMExCHAN' string takes the first T*K
-    CUDA devices and raises when fewer are visible (no smaller mesh, no
-    CPU, no device named twice); a DeviceMesh is taken as it is."""
+def _mesh_for(mesh, device):
+    """cfg.mesh -> a DeviceMesh.  A 'TIMExCHAN' string takes T*K shards: in
+    one process the first T*K CUDA devices, in a multi-process job the
+    first T*K of the job's shards, one per process on its own device
+    (multihost.global_shards, the JAX package's global jax.devices()); it
+    raises when there are fewer (no smaller mesh, no CPU, no device named
+    twice).  A DeviceMesh is taken as it is."""
+    from .parallel import multihost
     from .parallel.sharding import DeviceMesh, parse_mesh
     if isinstance(mesh, DeviceMesh):
         return mesh
     t_ax, k_ax = parse_mesh(mesh)
-    have = torch.cuda.device_count()
-    if t_ax * k_ax > have:
+    if multihost.process_count() > 1:
+        device = torch.device(device)
+        if device.type == 'cuda' and device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        shards = multihost.global_shards([device])
+    else:
+        shards = [f'cuda:{i}' for i in range(torch.cuda.device_count())]
+    if t_ax * k_ax > len(shards):
         raise ValueError(f'mesh {mesh} needs {t_ax * k_ax} devices, '
-                         f'have {have}')
-    return DeviceMesh([[f'cuda:{t * k_ax + k}' for k in range(k_ax)]
-                       for t in range(t_ax)])
+                         f'have {len(shards)}')
+    return DeviceMesh([shards[t * k_ax:(t + 1) * k_ax] for t in range(t_ax)])
 
 
 class HfdlApp:
@@ -101,7 +111,8 @@ class HfdlApp:
             from .parallel.sharding import ShardedWidebandReceiver
             self.receiver = ShardedWidebandReceiver(
                 cfg.sample_rate, self.centerfreq, list(cfg.frequencies),
-                _mesh_for(cfg.mesh), block_len=cfg.demod_block_len)
+                _mesh_for(cfg.mesh, cfg.device),
+                block_len=cfg.demod_block_len)
         else:
             self.receiver = WidebandReceiver(
                 cfg.sample_rate, self.centerfreq, list(cfg.frequencies),

@@ -6,7 +6,9 @@ to start without one; --mesh TIMExCHAN decodes on the first TIME*CHAN CUDA
 devices (parallel/sharding.py) and refuses to start with fewer; --profile
 DIR records a torch.profiler trace of the run.  With DUMPHFDL_COORDINATOR,
 DUMPHFDL_NUM_PROCESSES and DUMPHFDL_PROCESS_ID set, each process decodes its
-slice of the channel list (parallel/multihost.py).
+slice of the channel list (parallel/multihost.py), or, with --mesh, is one
+shard of a mesh across the processes (one card each, nccl), every process
+fed the same stream and emitting the whole decode.
 
     python -m dumphfdl_tpu_torch.cli --iq-file CAPTURE --sample-format CS16 \
         --sample-rate 48000 --centerfreq 8930 8912 8942
@@ -75,8 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
                           'the sample rate aligns')
     src.add_argument('--mesh', metavar='TIMExCHAN', default=None,
                      help="decode on a ('time', 'chan') mesh of the first "
-                          'TIME*CHAN CUDA devices, e.g. 2x2: the frontend '
-                          'shards over time, the demodulator over channels')
+                          'TIME*CHAN CUDA devices, e.g. 2x2 (in a '
+                          'multi-process job: of the processes, one card '
+                          'each): the frontend shards over time, the '
+                          'demodulator over channels')
 
     out = p.add_argument_group('output options')
     out.add_argument('--output', action='append', default=[],
@@ -144,11 +148,14 @@ def build_app(args, device: torch.device) -> HfdlApp:
     freqs_hz = [int(round(f * 1000)) for f in args.frequencies]
 
     # multi-host deployment (DUMPHFDL_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID):
-    # each host ingests and demodulates its contiguous slice of the channel
-    # list and runs its own output stack (the counterpart of the reference's
-    # N instances plus ZMQ aggregator, README.md:969)
+    # without --mesh each host ingests and demodulates its contiguous slice
+    # of the channel list and runs its own output stack (the counterpart of
+    # the reference's N instances plus ZMQ aggregator, README.md:969); with
+    # --mesh every host is fed the whole band and the mesh spans the hosts
+    # (one shard each), so nothing is sliced
     from .parallel import multihost
-    if multihost.init_distributed(device=device):
+    multi = multihost.init_distributed(device=device)
+    if multi and not args.mesh:
         sl = multihost.local_channel_slice(len(freqs_hz))
         print(f'multi-host: process {multihost.process_index()}/'
               f'{multihost.process_count()}, channels [{sl.start}:{sl.stop}] '
@@ -206,6 +213,13 @@ def build_app(args, device: torch.device) -> HfdlApp:
         demod_block_len=args.demod_block,
     )
     app = HfdlApp(cfg, ctx, outputs, statsd=statsd)
+    if multi and args.mesh:
+        mesh = app.receiver.mesh
+        print(f'multi-host: process {multihost.process_index()}/'
+              f'{multihost.process_count()}, mesh {mesh.shape["time"]}x'
+              f'{mesh.shape["chan"]}, shards '
+              f'{[mesh.index(s) for s in mesh.local_shards]}',
+              file=sys.stderr)
     if args.debug:
         from .utils import debug
         debug.set_classes(args.debug)

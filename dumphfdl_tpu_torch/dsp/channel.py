@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 
 from .. import constants as C
 from ..ops import crc
+from ..parallel import multihost
 from . import backend
 from . import tracker_cuda
 from .tracker import (EV_FIELDS, HALO, K_EVENTS, TrackerState,
@@ -497,7 +499,15 @@ class MeshChannelBank:
 
     Block b of the channel axis lies on mesh.demod_order()[b] ('chan'
     major, 'time' minor: the layout the sharded frontend's reshard leaves).
-    A bank shards only on a mesh it is given; nothing shards by itself."""
+    A bank shards only on a mesh it is given; nothing shards by itself.
+
+    On a mesh across processes a process holds the banks of its own shards,
+    and each block ends in one gather over the host group
+    (multihost.all_gather_host) of every process's events, counters and
+    noise floors, so that every process returns the whole decode (the JAX
+    ``fetch_global``).  What the app reads afterwards (last_counters,
+    tracker_state, from its main thread or its statistics thread) is those
+    joined host values; no property issues a collective."""
 
     def __init__(self, num_channels: int, mesh):
         self.num_channels = int(num_channels)
@@ -506,13 +516,23 @@ class MeshChannelBank:
         n = len(self.shards)
         self._c = -(-self.num_channels // n) * n
         self.rows_per_shard = self._c // n
+        # (block, shard) of this process's shards, in demod order
+        self._local = [(b, sh) for b, sh in enumerate(self.shards)
+                       if mesh.is_local(sh)]
         self.banks = []
-        for sh in self.shards:
+        for _, sh in self._local:
             with sh.run():        # a shard's state is made in its stream
                 self.banks.append(ChannelBank(self.rows_per_shard,
                                               sh.device))
-        self.fused_event_decode = self.banks[0].fused_event_decode
+        self.fused_event_decode = ChannelBank.fused_event_decode
         self._dumps = None
+        # across processes: the joined host values (until the first block,
+        # no counters and the noise floor every bank starts from), and the
+        # bytes this process put into the gathers
+        self.gather_bytes = 0
+        self._counters = None
+        self._noise_floor = tracker_init(self._c, 'cpu').noise_floor \
+            if mesh.multiprocess else None
 
     @property
     def dumps(self):
@@ -523,33 +543,39 @@ class MeshChannelBank:
 
     @dumps.setter
     def dumps(self, dumps) -> None:
+        if dumps is not None and self.mesh.multiprocess:
+            # as in the JAX package, whose dumps fetch arrays a process of
+            # a cross-process mesh cannot address
+            raise ValueError('--datadumps is not available on a mesh across '
+                             'processes')
         self._dumps = dumps
         for bank in self.banks:
             bank.dumps = None if dumps is None else _StageRows()
 
     def process(self, samples) -> list[FrameEvent]:
         """Feed a (C, T) or (C_pad, T) host block at 5400 sps, cut into each
-        shard's (rows, T) block on its device, padding channels silent;
-        returns completed frames."""
+        local shard's (rows, T) block on its device, padding channels
+        silent; returns completed frames."""
         x = np.asarray(samples, np.complex64)
         if x.shape[0] != self._c:
             x = np.concatenate([x, np.zeros((self._c - x.shape[0],
                                              x.shape[1]), np.complex64)])
         r = self.rows_per_shard
         out = []
-        for b, sh in enumerate(self.shards):
+        for b, sh in self._local:
             with sh.run():
                 out.append(torch.as_tensor(x[b * r:(b + 1) * r].copy(),
                                            device=sh.device))
         return self.process_shards(out)
 
     def process_shards(self, blocks: list[torch.Tensor]) -> list[FrameEvent]:
-        """Feed each shard its (rows, T) block, already on its device (in
-        demod order).  Every shard's block is launched before any shard's
-        previous block is collected, so one shard's readback and event
-        decode overlap the others' device work."""
+        """Feed each local shard its (rows, T) block, already on its device
+        (in demod order).  Every shard's block is launched before any
+        shard's previous block is collected, so one shard's readback and
+        event decode overlap the others' device work."""
         pending = []
-        for sh, bank, x in zip(self.shards, self.banks, blocks):
+        for (_, sh), bank, x in zip(self._local, self.banks, blocks,
+                                    strict=True):
             with sh.run():
                 pending.append(bank.launch(x))
         if self._dumps is not None:
@@ -564,29 +590,78 @@ class MeshChannelBank:
 
     def _gather(self, collect, pending) -> list[FrameEvent]:
         events = []
-        for b, (sh, bank, rb) in enumerate(zip(self.shards, self.banks,
-                                               pending)):
+        for (b, sh), bank, rb in zip(self._local, self.banks, pending):
             with sh.run():
                 got = collect(bank, rb)
             first = b * self.rows_per_shard
             events.extend(ev._replace(channel=first + ev.channel)
                           for ev in got
                           if first + ev.channel < self.num_channels)
-        return events
+        if not self.mesh.multiprocess:
+            return events
+        return self._join(events)
+
+    def _join(self, events: list[FrameEvent]) -> list[FrameEvent]:
+        """One gather over the processes: this process's events (global
+        channel numbers), counters and noise floors, by block; returns every
+        process's events in channel order and keeps the joined values."""
+        counters = self._on_host(lambda bank: bank.last_counters)
+        floors = self._on_host(lambda bank: bank.tracker_state.noise_floor)
+        rows = [(b, None if cnt is None else cnt.numpy(), floor.numpy())
+                for (b, _), cnt, floor in zip(self._local, counters, floors)]
+        payload = pickle.dumps({'events': events, 'rows': rows})
+        self.gather_bytes += len(payload)
+        parts = [pickle.loads(p) for p in multihost.all_gather_host(payload)]
+        r = self.rows_per_shard
+        counters, nf = np.zeros((self._c, 4), np.float32), \
+            np.zeros(self._c, np.float32)
+        have_counters = True
+        for p in parts:
+            for b, cnt, floor in p['rows']:
+                if cnt is None:
+                    have_counters = False
+                else:
+                    counters[b * r:(b + 1) * r] = cnt
+                nf[b * r:(b + 1) * r] = floor
+        if have_counters:
+            self._counters = torch.as_tensor(counters[:self.num_channels])
+        self._noise_floor = torch.as_tensor(nf)
+        # blocks cover ascending channel ranges
+        return sorted((ev for p in parts for ev in p['events']),
+                      key=lambda ev: ev.channel // r)
 
     @property
     def last_counters(self) -> torch.Tensor | None:
         """(num_channels, 4) counters of the last block, on the host."""
+        if self.mesh.multiprocess:
+            return self._counters
         if self.banks[0].last_counters is None:
             return None
-        return torch.cat([bank.last_counters.cpu() for bank in self.banks]
+        return torch.cat(self._on_host(lambda bank: bank.last_counters)
                          )[:self.num_channels]
+
+    def _on_host(self, get) -> list:
+        """get(bank) of every local bank, a tensor or a tuple of them,
+        copied to the host in the bank's shard's stream (after the work
+        that wrote it)."""
+        cpu = lambda v: None if v is None else v.cpu()
+        out = []
+        for (_, sh), bank in zip(self._local, self.banks):
+            with sh.run():
+                v = get(bank)
+                out.append(type(v)(*map(cpu, v)) if isinstance(v, tuple)
+                           else cpu(v))
+        return out
 
     @property
     def tracker_state(self) -> TrackerState:
         """The shards' tracker states joined along the channel axis, on the
-        host (padding channels included)."""
-        states = [bank.tracker_state for bank in self.banks]
-        return TrackerState(*[
-            None if vals[0] is None else torch.cat([v.cpu() for v in vals])
-            for vals in zip(*states)])
+        host (padding channels included).  Across processes only the noise
+        floor is joined (the other fields are None): it is what the app
+        reads."""
+        if self.mesh.multiprocess:
+            return TrackerState(**dict.fromkeys(TrackerState._fields)
+                                | {'noise_floor': self._noise_floor})
+        states = self._on_host(lambda bank: bank.tracker_state)
+        return TrackerState(*[None if vals[0] is None else torch.cat(vals)
+                              for vals in zip(*states)])

@@ -17,6 +17,7 @@ The public layout is the JAX one: TrackerState in and out, TrackerOutputs
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -136,13 +137,20 @@ def _unpack_window(words: torch.Tensor, c: int) -> torch.Tensor:
     return 1.0 - 2.0 * bits.to(torch.float32)
 
 
-def _tracker_kernel(state: TrackerState, x: torch.Tensor,
-                    level: torch.Tensor, num_steps: int,
-                    act: torch.Tensor, debug_taps: bool = False):
-    """Launch K2 on one block; same contract as tracker.tracker_block.
-    debug_taps launches the kernel's taps instantiation, which also fills
-    three (num_steps, c_pad) planes."""
-    global launches, taps_launches
+class _Call(NamedTuple):
+    """One K2 launch, its inputs and output planes made ready
+    (_prepare); the launch (_launch) updates the state planes in place."""
+    state: TrackerState
+    shift: torch.Tensor
+    c: int
+    t_len: int
+    num_steps: int
+    args: tuple             # the launcher's tensors, in its order
+    debug_taps: bool
+
+
+def _prepare(state: TrackerState, x: torch.Tensor, level: torch.Tensor,
+             num_steps: int, act: torch.Tensor, debug_taps: bool) -> _Call:
     dev = x.device
     c, t_len = x.shape
     if (x.dtype != torch.complex64 or level.dtype != torch.float32
@@ -181,41 +189,88 @@ def _tracker_kernel(state: TrackerState, x: torch.Tensor,
     ev = torch.empty((K_EVENTS * EV_FIELDS, c_pad), **f32)
     cnt = torch.empty((4, c_pad), **f32)
     taps = torch.empty((3, num_steps, c_pad), **f32) if debug_taps else None
+    return _Call(state, shift, c, t_len, num_steps,
+                 (act, xc, lvl, shifts, banks, eq0, seqs, sf, si, eq, win,
+                  sym_re, sym_im, packed, ev, cnt, taps), debug_taps)
 
+
+def _launch(call: _Call) -> None:
+    """The launch itself, in the current stream of the tensors' device."""
+    global launches, taps_launches
+    dev = call.args[1].device
+    c_pad = call.args[3].shape[0]
     lib = _build.library()
-    ptr = lambda a: a.data_ptr()
+    ptrs = [None if a is None else a.data_ptr() for a in call.args]
     with on(dev):                 # the launch goes to the current device
         err = lib.hfdl_tracker(
-            ptr(act), ptr(xc), ptr(lvl), ptr(shifts), ptr(banks), ptr(eq0),
-            ptr(seqs), ptr(sf), ptr(si), ptr(eq), ptr(win), ptr(sym_re),
-            ptr(sym_im), ptr(packed), ptr(ev), ptr(cnt),
-            ptr(taps) if debug_taps else None, c_pad, c, t_len, num_steps,
-            trk.K1, trk.K2, C.COSTAS_BETA, trk.BASE_STEP,
+            *ptrs, c_pad, call.c, call.t_len, call.num_steps, trk.K1, trk.K2,
+            C.COSTAS_BETA, trk.BASE_STEP,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'tracker kernel')
-    if debug_taps:
+    if call.debug_taps:
         taps_launches += 1
     else:
         launches += 1
 
+
+def _results(call: _Call):
+    """The launched call's (state, outputs, event table, counters)."""
+    c, t_len = call.c, call.t_len
+    sf, si, eq, win, sym_re, sym_im, packed, ev, cnt, taps = call.args[7:]
     fields = {f: sf[i, :c] for i, f in enumerate(_SF)}
     fields.update({f: si[i, :c] for i, f in enumerate(_SI)})
     fields['bitmask'] = fields['bitmask'] != 0
     fields['eq_taps'] = torch.complex(eq[0:15, :c].T, eq[15:30, :c].T)
     fields['eq_buf'] = torch.complex(eq[30:45, :c].T, eq[45:60, :c].T)
     fields['window'] = _unpack_window(win, c)
-    fields['acq_hit'] = state.acq_hit
+    fields['acq_hit'] = call.state.acq_hit
     final = TrackerState(**fields)
     final = final._replace(
-        tau=final.tau + shift.to(torch.float32) - float(t_len - HALO))
+        tau=final.tau + call.shift.to(torch.float32) - float(t_len - HALO))
     p = packed[:, :c]
     outs = TrackerOutputs(
         sym=torch.complex(sym_re[:, :c], sym_im[:, :c]),
         is_data=(p & 1) != 0,
         data_idx=p // (2 * C.FRAME_PARITY_SLOTS),
         frame_parity=(p >> 1) & (C.FRAME_PARITY_SLOTS - 1),
-        taps=taps[:, :, :c].permute(1, 2, 0) if debug_taps else None)
+        taps=taps[:, :, :c].permute(1, 2, 0) if call.debug_taps else None)
     return final, outs, ev[:, :c].T, cnt[:, :c].T
+
+
+def _tracker_kernel(state: TrackerState, x: torch.Tensor,
+                    level: torch.Tensor, num_steps: int,
+                    act: torch.Tensor, debug_taps: bool = False):
+    """Launch K2 on one block; same contract as tracker.tracker_block.
+    debug_taps launches the kernel's taps instantiation, which also fills
+    three (num_steps, c_pad) planes."""
+    call = _prepare(state, x, level, num_steps, act, debug_taps)
+    _launch(call)
+    return _results(call)
+
+
+def kernel_alone_ms(state: TrackerState, x: torch.Tensor,
+                    level: torch.Tensor, num_steps: int,
+                    use_acq: bool = True, reps: int = 5) -> float:
+    """Mean device milliseconds of K2's launch alone on one block (CUDA
+    events around reps launches, each on its own copy of the prepared
+    state planes, all prepared beforehand; one launch to warm up): the
+    wrapper's time less its host work and the gate."""
+    act, _ = tile_activity(state, x, use_acq)
+    calls = [_prepare(state, x, level, num_steps, act, False)
+             for _ in range(reps + 1)]
+    dev = x.device
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    with on(dev):
+        _launch(calls[0])
+        torch.cuda.synchronize(dev)
+        stream = torch.cuda.current_stream(dev)
+        start.record(stream)
+        for call in calls[1:]:
+            _launch(call)
+        end.record(stream)
+        torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
 
 
 def trig_mismatches(device) -> int:

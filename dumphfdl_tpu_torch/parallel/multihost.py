@@ -1,13 +1,24 @@
 """Multi-host deployment plumbing (torch.distributed).
 
-Counterpart of ``dumphfdl_tpu/parallel/multihost.py``.  The reference
-scales past one machine by running independent processes aggregated over
-ZMQ (extras/log_aggregator.py).  Here every process calls
-``init_distributed`` (rendezvous at process 0), takes its contiguous slice
-of the channel list (``local_channel_slice``), feeds only its local SDR
-stream and runs its own output stack, so no samples cross between hosts.
-A ('time', 'chan') mesh that spans processes is not ported: a mesh
-(parallel/sharding.py) lives in one process.
+Counterpart of ``dumphfdl_tpu/parallel/multihost.py``.  Every process
+calls ``init_distributed`` (rendezvous at process 0) and is one rank of a
+``torch.distributed`` group.  Two deployments stand on it:
+
+* **Channel slicing** (the CLI without ``--mesh``): each process takes its
+  contiguous slice of the channel list (``local_channel_slice``), feeds
+  only its local SDR stream and runs its own output stack, so no samples
+  cross between hosts.  The reference scales past one machine the same way,
+  with independent processes aggregated over ZMQ
+  (extras/log_aggregator.py).
+* **A global mesh** (``--mesh`` in a multi-process job): every rank
+  contributes its local shards (``global_shards``), the ('time', 'chan')
+  mesh of parallel/sharding.py spans the ranks, and its halo and reshard
+  copies go between processes (``DeviceMesh.exchange``).  Every process is
+  fed the same wideband stream and ends each block with the whole decode.
+
+Objects the ranks share (device lists, decoded events) go through
+``host_group()``, a gloo group, so they never pass through a card; under
+nccl the card carries only the mesh's sample copies.
 
 Environment variables (systemd-friendly):
   DUMPHFDL_COORDINATOR   host:port of process 0
@@ -17,6 +28,7 @@ Environment variables (systemd-friendly):
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -25,12 +37,20 @@ import torch.distributed as dist
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None, *, device) -> bool:
+                     process_id: int | None = None, *, device,
+                     timeout: float | None = None,
+                     backend: str | None = None) -> bool:
     """Join the process group named by the arguments or, for each one not
     given, the environment; returns True when running multi-process, False
-    for a single process (nothing is initialized then).  device is the one
-    the process decodes on and decides the backend: nccl for a CUDA device,
-    gloo for the CPU."""
+    for a single process (nothing is initialized then).  A process that
+    has joined a group already stays in it (True).  device is the one the
+    process decodes on and decides the backend: nccl for a CUDA device,
+    gloo for the CPU; backend='gloo' for a CUDA device is for ranks that
+    share one card, which nccl refuses (a mesh then stages its copies
+    through host memory).  timeout (seconds) bounds every collective of
+    the group (torch's default where None)."""
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
     if coordinator is None:
         coordinator = os.environ.get('DUMPHFDL_COORDINATOR')
     if coordinator is None:
@@ -45,10 +65,15 @@ def init_distributed(coordinator: str | None = None,
     kind = torch.device(device).type
     if kind not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {device}')
+    if backend is None:
+        backend = 'nccl' if kind == 'cuda' else 'gloo'
+    elif backend not in ('gloo', 'nccl') or (kind, backend) == ('cpu', 'nccl'):
+        raise ValueError(f'backend {backend} for a {kind} device')
+    extra = {} if timeout is None else \
+        {'timeout': datetime.timedelta(seconds=timeout)}
     dist.init_process_group(
-        backend='nccl' if kind == 'cuda' else 'gloo',
-        init_method=f'tcp://{coordinator}',
-        world_size=num_processes, rank=process_id)
+        backend=backend, init_method=f'tcp://{coordinator}',
+        world_size=num_processes, rank=process_id, **extra)
     return True
 
 
@@ -65,3 +90,39 @@ def local_channel_slice(num_channels: int) -> slice:
     n, idx = process_count(), process_index()
     per = -(-num_channels // n)
     return slice(idx * per, min((idx + 1) * per, num_channels))
+
+
+_host_groups: dict = {}
+
+
+def host_group():
+    """The group host objects are gathered over: the default group when its
+    backend is gloo, else a gloo group over the same ranks, made once (a
+    collective: every rank makes it at the same point, from the thread that
+    issues the group's other collectives)."""
+    if dist.get_backend() == 'gloo':
+        return dist.group.WORLD
+    key = id(dist.group.WORLD)
+    if key not in _host_groups:
+        _host_groups[key] = dist.new_group(backend='gloo')
+    return _host_groups[key]
+
+
+def all_gather_host(obj) -> list:
+    """Every rank's obj, in rank order, over host_group()."""
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj, group=host_group())
+    return out
+
+
+def global_shards(local_devices) -> list[tuple[int, torch.device]]:
+    """The job's shards: each rank's local devices in rank order, as (rank,
+    device) pairs.  A single process gets its own list, rank 0.  Every rank
+    must call it (a collective)."""
+    mine = [torch.device(d) for d in local_devices]
+    if not dist.is_initialized():
+        return [(0, d) for d in mine]
+    return [(rank, torch.device(d))
+            for rank, devs in enumerate(all_gather_host([str(d)
+                                                         for d in mine]))
+            for d in devs]

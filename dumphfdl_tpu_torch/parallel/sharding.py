@@ -23,18 +23,32 @@ Mapping on a ('time', 'chan') mesh of T x K shards:
   appends to its own fs1 ring, resamples and demodulates its channels).
 
 Where the JAX package has one ``shard_map`` with ``ppermute``, ``psum`` and
-``all_to_all``, the port has one controlling process and explicit copies
-between shards, each ordered by an event: the copy runs in the sending
-shard's stream, the receiving shard's stream waits for it.  Every such copy
-goes through ``DeviceMesh.send``, which counts its bytes, so the traffic is
-held against ``comm_model()`` by counts.
+``all_to_all``, the port has explicit copies between shards.  Every copy
+goes through ``DeviceMesh.exchange`` (or ``send``, one copy), which counts
+its bytes on the sending side (and, between processes, on the receiving
+side too), so the traffic is held against ``comm_model()`` by counts.
+Between two shards of one process a copy runs in the sending shard's
+stream and the receiving shard's stream waits for its event.
+
+A mesh may span processes (parallel/multihost.py): its shard list is then
+every rank's local shards in rank order (``multihost.global_shards``), and
+each process holds stream, state and buffers for its own shards only.  A
+copy between shards of two ranks is a ``torch.distributed`` send and
+receive, all copies of one exchange phase posted together: under nccl one
+``batch_isend_irecv`` per phase, card to card (nccl takes one card per
+process, so a rank's shards all lie on one card); under gloo an
+``isend``/``irecv`` per copy, tagged by (kind, source, destination), and a
+CUDA tensor is staged through pinned host memory on both sides.  The
+transport is the group's backend; nothing falls back to the other.  Every
+process reads the same wideband stream (what the JAX ``place_global``
+assumes) and uploads only its own shards' spans.
 
 There is no global array type here, so ``place_global`` and
 ``fetch_global`` have no counterpart: state is made shard by shard on its
 device (``MeshChannelBank``, one ``Fs1Resampler`` ring per shard), host
 blocks are cut by ``MeshChannelBank.process``, and what the host reads back
-(event tables, counters, noise floors) is joined by ``MeshChannelBank``.
-A mesh across processes is not ported.
+(event tables, counters, noise floors) is joined by ``MeshChannelBank``,
+across processes by one gather per block.
 
 A mesh is always given its devices; nothing picks them.  The list may name
 one device several times: these are logical shards, each with its own state
@@ -47,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import time
 
@@ -57,15 +72,18 @@ from .. import constants as C
 from ..dsp import frontend as fe
 from ..dsp.channel import FrameEvent, MeshChannelBank
 from ..io import ingest
+from . import multihost
 
 
 @dataclasses.dataclass(eq=False)
 class Shard:
-    """One cell of the mesh: a device and, on CUDA, a stream of its own."""
+    """One cell of the mesh: a device of a rank and, on CUDA in this
+    process, a stream of its own."""
     t: int
     k: int
     device: torch.device
     stream: object = None           # torch.cuda.Stream, None on the CPU
+    rank: int = 0                   # the process that holds it
 
     def run(self):
         """Context in which this shard's work is enqueued."""
@@ -78,34 +96,87 @@ class Shard:
             self.stream.synchronize()
 
 
+# the kinds of copy between shards, in the order of their tags
+EXCHANGE_KINDS = ('halo', 'reshard')
+
+
 class DeviceMesh:
     """A (T, K) grid of shards with axes ('time', 'chan'): the port's
     stand-in for ``jax.sharding.Mesh``.  devices is a T-long list of K-long
-    lists of ``torch.device`` (or their names), all of one type."""
+    lists, all of one device type; each entry is a ``torch.device`` (or its
+    name) of this process, or a (rank, device) pair of
+    ``multihost.global_shards`` for a mesh across processes."""
 
     axis_names = ('time', 'chan')
 
     def __init__(self, devices):
-        grid = [[torch.device(d) for d in row] for row in devices]
+        me = multihost.process_index()
+        devices = [list(row) for row in devices]
+        # the job's shards, (rank, device) pairs, in a multi-process job
+        self.multiprocess = multihost.process_count() > 1 and any(
+            isinstance(d, tuple) for row in devices for d in row)
+        grid = [[(int(d[0]), torch.device(d[1])) if isinstance(d, tuple)
+                 else (me, torch.device(d)) for d in row] for row in devices]
         if not grid or not grid[0] or len({len(r) for r in grid}) != 1:
             raise ValueError('a mesh needs a rectangular grid of devices')
-        kinds = {d.type for row in grid for d in row}
+        kinds = {d.type for row in grid for _, d in row}
         if len(kinds) != 1 or kinds - {'cpu', 'cuda'}:
             raise ValueError(f'a mesh needs devices of one type, cpu or '
                              f'cuda; got {sorted(kinds)}')
+        self.rank = me
         self.shape = {'time': len(grid), 'chan': len(grid[0])}
         self.grid = [[Shard(t, k, d, torch.cuda.Stream(d)
-                            if d.type == 'cuda' else None)
-                      for k, d in enumerate(row)]
+                            if d.type == 'cuda' and r == me else None, r)
+                      for k, (r, d) in enumerate(row)]
                      for t, row in enumerate(grid)]
         self.shards = [s for row in self.grid for s in row]   # time-major
         self.size = len(self.shards)
-        # bytes and copies that crossed between shards, by kind
+        self.local_shards = [s for s in self.shards if s.rank == me]
+        self.backend = None
+        if self.multiprocess:
+            self._join_group(kinds.pop())
+        # bytes and copies this process sent to other shards, by kind, the
+        # bytes it received from other processes' shards, and the copies
+        # that went through host memory (gloo between cards)
         self.moved: dict[str, int] = {}
         self.copies: dict[str, int] = {}
+        self.received: dict[str, int] = {}
+        self.staged: dict[str, int] = {}
+
+    def _join_group(self, kind: str) -> None:
+        """Checks and set-up of a mesh across processes: every rank holds
+        shards, nccl carries one card per process, and under nccl a first
+        collective over every rank brings up its communicator here, not
+        inside the first exchange."""
+        # every rank gathers each block's decode, so every rank holds shards
+        ranks = {s.rank for s in self.shards}
+        if ranks != set(range(multihost.process_count())):
+            raise ValueError(f'a mesh across processes takes shards from '
+                             f'every rank of the job; it has ranks '
+                             f'{sorted(ranks)} of {multihost.process_count()}')
+        self.backend = torch.distributed.get_backend()
+        if self.backend != 'nccl':
+            return
+        devs = {s.device for s in self.local_shards}
+        if kind != 'cuda' or len(devs) > 1:
+            raise ValueError(f'nccl carries one CUDA device per process; '
+                             f'this rank holds shards on '
+                             f'{sorted(map(str, devs))}')
+        dev = devs.pop()
+        torch.cuda.set_device(dev)
+        torch.distributed.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize(dev)
 
     def shard(self, t: int, k: int) -> Shard:
         return self.grid[t][k]
+
+    def is_local(self, shard: Shard) -> bool:
+        """Whether this process holds the shard."""
+        return shard.rank == self.rank
+
+    def index(self, shard: Shard) -> int:
+        """The shard's position in the time-major shard list."""
+        return shard.t * self.shape['chan'] + shard.k
 
     def demod_order(self) -> list[Shard]:
         """The shards in the order of the demodulator's channel blocks:
@@ -115,19 +186,59 @@ class DeviceMesh:
 
     @property
     def physical_devices(self) -> list[torch.device]:
-        return sorted({s.device for s in self.shards}, key=str)
+        """This process's devices."""
+        return sorted({s.device for s in self.local_shards}, key=str)
 
-    def send(self, x: torch.Tensor, src: Shard, dst: Shard,
-             kind: str) -> torch.Tensor:
-        """A copy of x (on src's device, produced in src's stream) on dst's
-        device, safe to use in dst's stream.  Always a copy, never x itself:
-        two shards on one device must not share a buffer that one of them
-        updates in place."""
-        if src is dst:
-            raise ValueError('a shard does not send to itself')
-        self.moved[kind] = self.moved.get(kind, 0) \
-            + x.numel() * x.element_size()
-        self.copies[kind] = self.copies.get(kind, 0) + 1
+    def send(self, x, src: Shard, dst: Shard, kind: str, shape=None,
+             dtype=None):
+        """One copy: exchange() of one move.  On src's rank x is the tensor
+        (on src's device, produced in src's stream); on dst's rank, when
+        src is another process's, x is None and shape and dtype say what
+        comes.  Returns the copy on dst's rank, else None."""
+        if shape is None:
+            shape, dtype = x.shape, x.dtype
+        return self.exchange(kind, [(src, dst, x)], shape, dtype) \
+            .get((src, dst))
+
+    def exchange(self, kind: str, moves, shape,
+                 dtype=torch.complex64) -> dict:
+        """One exchange phase: the copies (src, dst, x) of one kind, each a
+        tensor of `shape` and `dtype`, x the tensor on src's rank (None
+        elsewhere).  moves may list the whole mesh's copies; a process acts
+        on those that touch its shards.  Returns {(src, dst): copy} for
+        each move whose dst is this process's, safe to use in dst's stream.
+        A copy is always a new buffer, never x itself: two shards on one
+        device must not share a buffer that one of them updates in place.
+
+        Every process must call it for the phase, with the same moves for
+        each pair of its shards and another rank's (a send waits for its
+        receive)."""
+        out, remote = {}, []
+        for src, dst, x in moves:
+            if src is dst:
+                raise ValueError('a shard does not send to itself')
+            if self.is_local(src):
+                self.moved[kind] = self.moved.get(kind, 0) \
+                    + x.numel() * x.element_size()
+                self.copies[kind] = self.copies.get(kind, 0) + 1
+                if self.is_local(dst):
+                    out[(src, dst)] = self._copy_local(x, src, dst)
+                    continue
+            elif not self.is_local(dst):
+                continue
+            else:
+                self.received[kind] = self.received.get(kind, 0) \
+                    + math.prod(shape) * dtype.itemsize
+            remote.append((src, dst, x))
+        if remote:
+            remote.sort(key=lambda m: (self.index(m[0]), self.index(m[1])))
+            post = self._post_nccl if self.backend == 'nccl' \
+                else self._post_gloo
+            out.update(post(kind, remote, tuple(shape), dtype))
+        return out
+
+    @staticmethod
+    def _copy_local(x: torch.Tensor, src: Shard, dst: Shard) -> torch.Tensor:
         if src.stream is None:
             return x.to(dst.device, copy=True)
         with src.run():
@@ -138,14 +249,113 @@ class DeviceMesh:
         out.record_stream(dst.stream)
         return out
 
+    def _tag(self, kind: str, src: Shard, dst: Shard) -> int:
+        n = self.size
+        return (EXCHANGE_KINDS.index(kind) * n + self.index(src)) * n \
+            + self.index(dst)
+
+    def _post_nccl(self, kind, moves, shape, dtype) -> dict:
+        """The phase's copies with other ranks as one batch_isend_irecv,
+        posted in the same order on every rank, card to card.  The batch
+        is posted from the device's current stream after every local
+        shard's work so far (the sent tensors are done, the receive buffers
+        free); each receiving shard's stream then waits for the batch, and
+        each sent tensor is kept for the allocator until the batch is
+        done."""
+        dist = torch.distributed
+        dev = self.local_shards[0].device
+        recvs, sent, ops = [], [], []
+        with torch.cuda.device(dev):
+            post = torch.cuda.current_stream(dev)
+            for sh in self.local_shards:
+                post.wait_stream(sh.stream)
+            for src, dst, x in moves:
+                tag = self._tag(kind, src, dst)
+                if self.is_local(src):
+                    x = x.contiguous()
+                    sent.append(x)
+                    ops.append(dist.P2POp(dist.isend, _wire(x), dst.rank,
+                                          tag=tag))
+                else:
+                    with dst.run():
+                        buf = torch.empty(shape, dtype=dtype,
+                                          device=dst.device)
+                    recvs.append((src, dst, buf))
+                    ops.append(dist.P2POp(dist.irecv, _wire(buf), src.rank,
+                                          tag=tag))
+            works = dist.batch_isend_irecv(ops)
+            for w in works:
+                w.wait()            # the post stream waits for the batch
+            for x in sent:
+                x.record_stream(post)
+        out = {}
+        for src, dst, buf in recvs:
+            with dst.run():
+                for w in works:
+                    w.wait()
+            out[(src, dst)] = buf
+        return out
+
+    def _post_gloo(self, kind, moves, shape, dtype) -> dict:
+        """The phase's copies with other ranks as tagged isend/irecv pairs
+        over gloo, which carries host tensors: a CUDA tensor is copied to
+        pinned host memory in its shard's stream before it is sent, and a
+        received one copied up in the receiving shard's stream."""
+        dist = torch.distributed
+        staged, works, recvs = [], [], []
+        for src, dst, x in moves:
+            if not self.is_local(src):
+                continue
+            if x.device.type == 'cuda':
+                with src.run():
+                    host = torch.empty(x.shape, dtype=x.dtype,
+                                       pin_memory=True)
+                    host.copy_(x, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(src.stream)
+                self.staged[kind] = self.staged.get(kind, 0) + 1
+            else:
+                host, done = x.contiguous(), None
+            staged.append((src, dst, host, done))
+        for src, dst, host, done in staged:
+            if done is not None:
+                done.synchronize()
+            works.append(dist.isend(_wire(host), dst.rank,
+                                    tag=self._tag(kind, src, dst)))
+        for src, dst, _ in moves:
+            if self.is_local(src):
+                continue
+            buf = torch.empty(shape, dtype=dtype,
+                              pin_memory=dst.device.type == 'cuda')
+            works.append(dist.irecv(_wire(buf), src.rank,
+                                    tag=self._tag(kind, src, dst)))
+            recvs.append((src, dst, buf))
+        for w in works:
+            w.wait()
+        out = {}
+        for src, dst, buf in recvs:
+            if dst.device.type == 'cuda':
+                with dst.run():
+                    buf = buf.to(dst.device, non_blocking=True)
+            out[(src, dst)] = buf
+        return out
+
     def synchronize(self) -> None:
-        for s in self.shards:
+        for s in self.local_shards:
             s.synchronize()
 
 
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """What goes over the wire for x: its real view when complex (both
+    backends move real tensors)."""
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
 def make_mesh(devices, time_axis: int | None = None) -> DeviceMesh:
-    """The (time, chan) mesh over a list of devices: two time shards when
-    the count is even and at least 4, else one."""
+    """The (time, chan) mesh over a list of devices (or of the (rank,
+    device) pairs of multihost.global_shards): two time shards when the
+    count is even and at least 4, else one; row t takes the list's t-th run
+    of K entries."""
     devices = list(devices)
     n = len(devices)
     if time_axis is None:
@@ -189,10 +399,11 @@ class ShardedFrontend:
         self.rows_per_chan_block = self.c_pad // self.K
         self.rows_per_shard = self.c_pad // mesh.size
         self._residual64 = np.asarray(residual64, np.float64)
-        # every shard of chan block k holds that block's tables
+        # every shard of chan block k holds that block's tables (this
+        # process's shards only)
         cl = self.rows_per_chan_block
         self._tables = {}
-        for sh in mesh.shards:
+        for sh in mesh.local_shards:
             rows = slice(sh.k * cl, (sh.k + 1) * cl)
             with sh.run():
                 self._tables[sh] = (
@@ -220,9 +431,10 @@ class ShardedFrontend:
         return ingest.put_raw(a, sh.device)
 
     def step(self, x: np.ndarray) -> list[torch.Tensor]:
-        """x: (super_len,) contiguous wideband samples -> each shard's
-        (rows_per_shard, nb_cols) fs1 block on its device, in demod order;
-        carries the overlap tail to the next step."""
+        """x: (super_len,) contiguous wideband samples -> each of this
+        process's shards' (rows_per_shard, nb_cols) fs1 block on its
+        device, in demod order; carries the overlap tail to the next step.
+        Every process of the mesh steps on the same samples."""
         geo, mesh, T = self.geo, self.mesh, self.T
         ov, post, rps = geo.overlap_length, geo.post_input_size, \
             self.rows_per_shard
@@ -236,7 +448,7 @@ class ShardedFrontend:
             .astype(np.float32)
         cl = self.rows_per_chan_block
         spans, phases = {}, {}
-        for sh in mesh.shards:
+        for sh in mesh.local_shards:
             piece = x[sh.t * self.span:(sh.t + 1) * self.span]
             if sh.t == 0:           # the previous super-block's end
                 piece = np.concatenate([self._tail, piece])
@@ -244,37 +456,45 @@ class ShardedFrontend:
                 spans[sh] = self._upload(piece, sh)
                 phases[sh] = self._upload(
                     ph0[sh.t, sh.k * cl:(sh.k + 1) * cl], sh)
-        # halo, DDC, and the row sub-blocks on their way to their shards
-        parts = {sh: [None] * T for sh in mesh.shards}
-        for sh in mesh.shards:
-            xs = spans[sh]
-            if sh.t:
-                prev = mesh.shard(sh.t - 1, sh.k)
-                halo = mesh.send(spans[prev][-ov:], prev, sh, 'halo')
+        # the halo: the last samples of shard (t-1, k)'s span to (t, k)
+        halos = mesh.exchange('halo', [
+            (prev, sh, spans[prev][-ov:] if prev in spans else None)
+            for sh in mesh.shards if sh.t
+            for prev in (mesh.shard(sh.t - 1, sh.k),)], (ov,))
+        nbs = {}
+        for sh, xs in spans.items():
             with sh.run():
                 if sh.t:
-                    xs = torch.cat([halo, xs])
+                    xs = torch.cat([halos[(mesh.shard(sh.t - 1, sh.k), sh)],
+                                    xs])
                 frames = xs.unfold(0, geo.fft_size, geo.input_size)
-                nb, _ = fe.ddc_frames(geo, self.window_images,
-                                      *self._tables[sh], frames, phases[sh])
-            for t2 in range(T):
-                dst = mesh.shard(t2, sh.k)
-                sub = nb[t2 * rps:(t2 + 1) * rps]
-                parts[dst][sh.t] = sub if dst is sh else \
-                    mesh.send(sub, sh, dst, 'reshard')
+                nbs[sh], _ = fe.ddc_frames(geo, self.window_images,
+                                           *self._tables[sh], frames,
+                                           phases[sh])
+        # the reshard: shard (t, k)'s row sub-block t2 to (t2, k)
+        sub = lambda sh, t2: nbs[sh][t2 * rps:(t2 + 1) * rps]
+        got = mesh.exchange('reshard', [
+            (src, dst, sub(src, dst.t) if src in nbs else None)
+            for src in mesh.shards for dst in mesh.shards
+            if dst.k == src.k and dst is not src],
+            (rps, self.F * post))
         out = []
         for sh in mesh.demod_order():
+            if sh not in nbs:
+                continue
+            parts = [sub(sh, t2) if t2 == sh.t
+                     else got[(mesh.shard(t2, sh.k), sh)] for t2 in range(T)]
             with sh.run():
-                out.append(torch.cat(parts[sh], dim=1) if T > 1
-                           else parts[sh][0])
+                out.append(torch.cat(parts, dim=1) if T > 1 else parts[0])
         self._tail = x[-ov:].copy()
         self._nb_count += self.nb_cols
         self.steps += 1
         return out
 
     def gather(self, blocks: list[torch.Tensor]) -> np.ndarray:
-        """step's result as one (c_pad, nb_cols) host array, row for row
-        the channel axis."""
+        """step's result on a mesh of one process as one (c_pad, nb_cols)
+        host array, row for row the channel axis."""
+        self.mesh.synchronize()     # made in their shards' streams
         return np.concatenate([b.cpu().numpy() for b in blocks])
 
 
@@ -310,12 +530,13 @@ class ShardedWidebandReceiver:
         tables = fe._design_tables(geo, self.sample_rate, self.centerfreq,
                                    tuple(self.frequencies), c_pad)
         self.frontend = ShardedFrontend(geo, tables, mesh, frames_per_shard)
-        # per shard the fs1 ring of its rows (room for one sharded step per
-        # append) and its resampler
+        # per shard of this process, in demod order, the fs1 ring of its
+        # rows (room for one sharded step per append) and its resampler
+        self.shards = [sh for sh in mesh.demod_order() if mesh.is_local(sh)]
         self.resamplers = [
             fe.Fs1Resampler(self.sample_rate, geo.decimation, rps, sh.device,
                             block_len, 2 * self.frontend.nb_cols)
-            for sh in mesh.demod_order()]
+            for sh in self.shards]
         self.sample_clock = 0       # wideband samples consumed
         self._pending: list[np.ndarray] = []    # chunks short of a step
         self._pending_len = 0
@@ -335,7 +556,9 @@ class ShardedWidebandReceiver:
 
     def process(self, wideband) -> list[FrameEvent]:
         """Feed wideband complex samples: a host array, which the receiver
-        cuts into spans and uploads itself."""
+        cuts into spans and uploads itself.  On a mesh across processes
+        every process is fed the same samples and returns the whole
+        decode."""
         if isinstance(wideband, torch.Tensor):
             raise TypeError('the sharded receiver takes host samples (a '
                             'numpy array), not a tensor')
@@ -350,7 +573,7 @@ class ShardedWidebandReceiver:
         whole = len(buf) - len(buf) % sl
         self._pending = [buf[whole:].copy()]
         self._pending_len = len(buf) - whole
-        shards = self.mesh.demod_order()
+        shards = self.shards
         for off in range(0, whole, sl):
             x = buf[off:off + sl]
             with self._stage('frontend'):
@@ -365,6 +588,7 @@ class ShardedWidebandReceiver:
                     with sh.run():
                         chunks.append(rs._drain_resampler())
                 # every shard's cursors move alike: the same chunk count
+                # (on every process: the bank gathers once per chunk)
                 for per_shard in zip(*chunks, strict=True):
                     events.extend(self.bank.process_shards(list(per_shard)))
         return events

@@ -32,19 +32,7 @@ from ..device import require_cuda
 from ..dsp import tracker as trk
 from ..dsp import tracker_cuda
 from ..ops import _build, fec_cuda
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+from .kernel_check import cuda_ms
 
 
 def _kernel_alone_ms(fn, name: str) -> float:
@@ -106,9 +94,9 @@ def main() -> int:
                              .astype(np.uint8), device=dev) for n in lengths]
     for s, n in zip(softs, lengths):
         say('K1 one mode', frames=64, nbits=n,
-            ms=_cuda_ms(lambda: fec_cuda.viterbi_decode(s, n), 20))
+            ms=cuda_ms(lambda: fec_cuda.viterbi_decode(s, n), 20))
     say('K1 event block', frames=64, modes=len(lengths), launches=1,
-        ms=_cuda_ms(lambda: fec_cuda.viterbi_decode_many(softs, lengths), 20))
+        ms=cuda_ms(lambda: fec_cuda.viterbi_decode_many(softs, lengths), 20))
 
     for nch, n_sym in ((512, 1800), (512, 5376), (2048, 5376)):
         t = 3 * n_sym + trk.HALO
@@ -121,13 +109,13 @@ def main() -> int:
         run = lambda: tracker_cuda.tracker_block(st, x, lvl, n_sym,
                                                  use_acq=False)
         say('K2 noise', channels=nch, symbols=n_sym,
-            wrapper_ms=_cuda_ms(run, 5),
+            wrapper_ms=cuda_ms(run, 5),
             kernel_alone_ms=_kernel_alone_ms(run, 'tracker_kernel'))
         if nch == 512:
             taps = lambda: tracker_cuda.tracker_block(st, x, lvl, n_sym,
                                                       debug_taps=True)
             say('K2 noise, debug_taps', channels=nch, symbols=n_sym,
-                wrapper_ms=_cuda_ms(taps, 5),
+                wrapper_ms=cuda_ms(taps, 5),
                 kernel_alone_ms=_kernel_alone_ms(taps, 'tracker_kernel'))
     return 0
 
