@@ -244,6 +244,17 @@ class HfdlApp:
         ss = self.receiver.engine
         return ss if ss is not None and ss.input_kind in formats else None
 
+    def _refuse_live_on_multiprocess_mesh(self) -> None:
+        """A mesh across processes steps every rank on the same samples
+        (ShardedFrontend.step); a live source differs between ranks, and
+        each rank's ingest ring drops samples at its own moments, so the
+        copies between ranks would splice different streams.  run_file is
+        not refused: every rank reads the same file in the same chunks."""
+        if self.cfg.mesh and self.receiver.mesh.multiprocess:
+            raise ValueError('live input is not available on a mesh across '
+                             'processes: every rank must step on the same '
+                             'samples')
+
     def _report_overruns(self, dropped: int) -> None:
         print(f'input: ring overrun, {dropped} samples dropped',
               file=sys.stderr)
@@ -258,8 +269,10 @@ class HfdlApp:
         ring overruns are counted like the reference's
         complex_samples_produce (input-helpers.c:80-92).  packed=True
         uploads at CS16 precision (half the bytes; for SDR sources whose
-        native format is integer anyway)."""
+        native format is integer anyway).  Refused on a mesh across
+        processes (_refuse_live_on_multiprocess_mesh)."""
         from .io import formats, ingest
+        self._refuse_live_on_multiprocess_mesh()
         self._start_nf_stats()
         ss = self._superstep_for('CF32', 'CS16')
         if ss is not None:
@@ -312,8 +325,9 @@ class HfdlApp:
         storage only), are re-chunked to the superstep cadence, and
         convert on the device inside the step.  Without a superstep for
         this format the buffers are converted on the host and take
-        run_stream."""
+        run_stream.  Refused on a mesh across processes, as run_stream."""
         from .io import formats, ingest
+        self._refuse_live_on_multiprocess_mesh()
         fmt = (sample_format or self.cfg.sample_format).upper()
         if self._superstep_for(fmt) is None:
             return self.run_stream(

@@ -155,6 +155,15 @@ def build_app(args, device: torch.device) -> HfdlApp:
     # (one shard each), so nothing is sliced
     from .parallel import multihost
     multi = multihost.init_distributed(device=device)
+    if multi and args.mesh and args.soapysdr is not None:
+        # a mesh across processes steps every rank on the same samples
+        # (ShardedFrontend.step), but each rank would open its own SDR, and
+        # each rank's ingest ring drops samples at its own moments: the halo
+        # and reshard copies would splice different streams together
+        raise SystemExit('error: --soapysdr cannot feed --mesh in a '
+                         'multi-process job (every rank of the mesh must '
+                         'step on the same samples); use --iq-file, which '
+                         'every rank reads alike')
     if multi and not args.mesh:
         sl = multihost.local_channel_slice(len(freqs_hz))
         print(f'multi-host: process {multihost.process_index()}/'

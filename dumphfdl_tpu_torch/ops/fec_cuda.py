@@ -5,9 +5,11 @@ the hand-written kernel ``csrc/viterbi.cu`` (one warp per frame, ACS and an
 all-lane chainback in one launch); a CPU tensor goes to the plain version,
 ``ops/fec.py:viterbi_decode``.  Any other device raises.
 
-``viterbi_decode`` takes one batch of one frame length.
-``viterbi_decode_many`` takes several batches of different frame lengths
-(the eight modes of an event block) and decodes them in one launch.
+``viterbi_decode`` takes one batch of one frame length (the event
+decode's gather route, ``ChannelBank._decode_by_gather``, one launch per
+mode).  ``viterbi_decode_many`` takes several batches of different frame
+lengths (the eight modes of an event block) and decodes them in one launch.
+Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ..device import on
 from . import _build
 from . import fec
 
-launches = 0            # kernel launches (CUDA path only)
+launches = 0            # viterbi_decode_many's launches (CUDA path only)
+one_mode_launches = 0   # viterbi_decode's launches (CUDA path only)
 
 
 def _check(soft: torch.Tensor, nbits: int) -> None:
@@ -35,7 +38,7 @@ def viterbi_decode(soft: torch.Tensor, nbits: int) -> torch.Tensor:
         return fec.viterbi_decode(soft, nbits)
     if soft.device.type != 'cuda':
         raise ValueError(f'unsupported device {soft.device}')
-    global launches
+    global one_mode_launches
     _check(soft, nbits)
     batch = soft.shape[0]
     chips = soft.to(torch.uint8).contiguous()
@@ -48,7 +51,7 @@ def viterbi_decode(soft: torch.Tensor, nbits: int) -> torch.Tensor:
             chips.data_ptr(), out.data_ptr(), batch, nbits,
             torch.cuda.current_stream(soft.device).cuda_stream)
     _build.check(lib, err, 'viterbi kernel')
-    launches += 1
+    one_mode_launches += 1
     return out
 
 

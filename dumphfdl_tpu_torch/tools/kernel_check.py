@@ -5,13 +5,15 @@ chip_smoke.py and the cross-process mesh's child program (tools/mesh_mp.py).
   larger of the bytes the call must move over the memory rate and its
   operations over the float32 rate, from the shapes of the call.
 * CUDA-event timers (``cuda_ms``, ``timed_ms``).
+* The wrappers' launch counts, all four at once (``zero_launches``,
+  ``launches``): every path that reports launches counts through these.
 * K2's wrapper against its plain version (``k2_pair``, ``compare_k2``).
 * ``recording()`` keeps what every shard of a mesh hands K2's and K1's
   wrappers in its own stream during a pass, and ``check_shard_blocks``
   holds both wrappers exact against their plain versions on one shard's
   own blocks and times them, K2 also by its launch alone.
 
-Nothing here runs without a CUDA device but the bounds.
+Nothing here runs without a CUDA device but the bounds and the counts.
 """
 
 from __future__ import annotations
@@ -32,6 +34,24 @@ FP32_OPS_PER_S = 67e12
 # the rest)
 K1_OPS_PER_BIT = 32 * 13
 K2_OPS_PER_SYMBOL = 400
+
+
+def zero_launches() -> None:
+    """Sets every kernel wrapper's launch count to 0."""
+    from ..dsp import tracker_cuda
+    from ..ops import fec_cuda
+    fec_cuda.launches = fec_cuda.one_mode_launches = 0
+    tracker_cuda.launches = tracker_cuda.taps_launches = 0
+
+
+def launches() -> dict:
+    """Every wrapper's launch count, by the kernels line's entry names."""
+    from ..dsp import tracker_cuda
+    from ..ops import fec_cuda
+    return {'viterbi27': fec_cuda.launches,
+            'viterbi27_one_mode': fec_cuda.one_mode_launches,
+            'tracker': tracker_cuda.launches,
+            'tracker_taps': tracker_cuda.taps_launches}
 
 
 def bound(n_bytes: int, n_ops: int) -> dict:

@@ -80,10 +80,9 @@ def _one_pass(argv, dev, spec: str, per_rank: int, prof=None) -> dict:
     """Build a fresh mesh and app and decode the capture once."""
     from .. import cli
     from ..app import HfdlApp
-    from ..dsp import tracker_cuda
-    from ..ops import fec_cuda
     from ..parallel import multihost
     from ..parallel.sharding import DeviceMesh, parse_mesh
+    from .kernel_check import launches, zero_launches
     t_ax, k_ax = parse_mesh(spec)
     shards = multihost.global_shards([dev] * per_rank)[:t_ax * k_ax]
     mesh = DeviceMesh([shards[t * k_ax:(t + 1) * k_ax] for t in range(t_ax)])
@@ -94,7 +93,7 @@ def _one_pass(argv, dev, spec: str, per_rank: int, prof=None) -> dict:
     seen = []
     handle = HfdlApp.handle_events
     app.handle_events = lambda evs: (seen.extend(evs), handle(app, evs))[1]
-    fec_cuda.launches = tracker_cuda.launches = 0
+    zero_launches()
     try:
         with prof if prof is not None else contextlib.nullcontext():
             mesh.synchronize()
@@ -102,12 +101,12 @@ def _one_pass(argv, dev, spec: str, per_rank: int, prof=None) -> dict:
             app.run_file(args.iq_file, args.sample_format)
             mesh.synchronize()
             wall = time.perf_counter() - t0
+            counts = launches()
     finally:
         app.shutdown()
     return dict(
         wall_s=wall, events=[_event_fields(e) for e in seen],
-        launches={'viterbi27': fec_cuda.launches,
-                  'tracker': tracker_cuda.launches},
+        launches=counts,
         moved=dict(mesh.moved), copies=dict(mesh.copies),
         received=dict(mesh.received),
         staged=dict(mesh.staged), upload_bytes=rx.frontend.upload_bytes,

@@ -36,9 +36,10 @@ def test_viterbi_kernel_matches_plain(cuda, mode):
                      for b in bits])
     soft = np.clip(soft + rng.integers(-100, 101, soft.shape), 0, 255)
     s = torch.as_tensor(soft.astype(np.uint8), device=cuda)
-    launches = fec_cuda.launches
+    launches = fec_cuda.one_mode_launches, fec_cuda.launches
     got = fec_cuda.viterbi_decode(s, nbits)
-    assert fec_cuda.launches == launches + 1
+    assert (fec_cuda.one_mode_launches, fec_cuda.launches) == \
+        (launches[0] + 1, launches[1])
     assert torch.equal(got, fec.viterbi_decode(s, nbits))
 
 
@@ -161,10 +162,11 @@ def test_wrappers_launch_on_their_tensors_device(cuda):
     nbits = C.MODES[1].framebits
     soft = torch.as_tensor(rng.integers(0, 256, (16, 2 * nbits))
                            .astype(np.uint8), device=dev)
-    before = fec_cuda.launches
+    before = fec_cuda.one_mode_launches, fec_cuda.launches
     got = fec_cuda.viterbi_decode(soft, nbits)
     many = fec_cuda.viterbi_decode_many([soft], [nbits])
-    assert fec_cuda.launches == before + 2
+    assert (fec_cuda.one_mode_launches, fec_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
     assert got.device == dev and torch.cuda.current_device() == 0
     want = fec.viterbi_decode(soft, nbits)
     assert torch.equal(got, want) and torch.equal(many[0], want)

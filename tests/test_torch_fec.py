@@ -58,9 +58,10 @@ def test_plain_matches_jax_every_frame_length(mode):
 def test_wrapper_routes_cpu_tensors_to_plain():
     rng = np.random.default_rng(3)
     bits, soft = _noisy_frames(rng, 540, 4, 60)
-    before = fec_cuda.launches
+    before = fec_cuda.one_mode_launches, fec_cuda.launches
     got = fec_cuda.viterbi_decode(torch.as_tensor(soft.astype(np.uint8)), 540)
-    assert fec_cuda.launches == before          # no kernel on the CPU
+    # no kernel on the CPU
+    assert (fec_cuda.one_mode_launches, fec_cuda.launches) == before
     np.testing.assert_array_equal(got.numpy(), bits)
 
 

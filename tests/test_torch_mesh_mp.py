@@ -340,3 +340,93 @@ def test_a_failing_rank_ends_the_other_within_the_timeout():
     assert rc1 != 0 and 'rank 1 fails' in err1
     assert rc0 != 0 and out0 is None, err0[-2000:]
     assert time.perf_counter() - t0 < 10 + 30
+
+
+_LIVE_CHILD = r'''
+import json, torch
+torch.set_num_threads(1)
+torch.cuda.device_count = lambda: 8     # what counts is the job's shards
+from dumphfdl_tpu_torch import cli
+from dumphfdl_tpu_torch.io import soapy_input
+from dumphfdl_tpu_torch.parallel import multihost
+opened = []
+
+
+class NoSdr:
+    """Stands in for SoapyInput: records being built and connected."""
+    def __init__(self, *a, **kw):
+        opened.append('built')
+
+    def connect(self):
+        opened.append('connect')
+
+
+soapy_input.SoapyInput = NoSdr
+freqs = ['--output', 'decoded:text:file:path=/dev/null', '8912', '8927',
+         '8942']
+res = {'rank': None, 'refused': None}
+try:
+    cli.main(['--mesh', '2x1', '--soapysdr', 'driver=none', '--sample-rate',
+              '48000', '--centerfreq', '8930'] + freqs, device='cpu')
+except SystemExit as e:
+    res['refused'] = str(e)
+res['rank'] = multihost.process_index()
+res['opened'] = opened
+# the app API: the live paths raise on a mesh across processes, before they
+# take a sample from the source
+app = cli.build_app(cli.build_parser().parse_args(
+    ['--mesh', '2x1', '--iq-file', 'unused', '--sample-format', 'CS16',
+     '--sample-rate', '48000', '--centerfreq', '8930'] + freqs),
+    torch.device('cpu'))
+taken = []
+
+
+def source():
+    taken.append(1)
+    yield from ()
+
+
+for name, run in (('run_stream', lambda: app.run_stream(source())),
+                  ('run_stream_raw',
+                   lambda: app.run_stream_raw(source(), 'CS16'))):
+    try:
+        run()
+        res[name] = None
+    except ValueError as e:
+        res[name] = str(e)
+res['multiprocess'] = app.receiver.mesh.multiprocess
+res['samples_taken'] = len(taken)
+app.shutdown()
+print(json.dumps(res))
+torch.distributed.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope='module')
+def live_on_a_multiprocess_mesh():
+    """The ranks of a two-process gloo job, each trying a live source on a
+    2x1 mesh across the processes: through the CLI, then through the app."""
+    return _ok(_finish(_start(2, ['-c', _LIVE_CHILD])))
+
+
+def test_cli_refuses_soapysdr_on_a_multiprocess_mesh(
+        live_on_a_multiprocess_mesh):
+    """--soapysdr with --mesh in a multi-process job: every rank exits with
+    the refusal before any SDR is built or connected (so no SoapySDR is
+    needed here)."""
+    for rank, r in enumerate(live_on_a_multiprocess_mesh):
+        assert r['rank'] == rank
+        assert '--soapysdr cannot feed --mesh in a multi-process job' \
+            in r['refused']
+        assert r['opened'] == []
+
+
+def test_live_paths_raise_on_a_multiprocess_mesh(live_on_a_multiprocess_mesh):
+    """HfdlApp.run_stream and run_stream_raw raise a ValueError on a mesh
+    across processes before they take a sample (the API's callers, not
+    only the CLI's, are covered)."""
+    for r in live_on_a_multiprocess_mesh:
+        assert r['multiprocess'] is True
+        for name in ('run_stream', 'run_stream_raw'):
+            assert 'not available on a mesh across processes' in r[name]
+        assert r['samples_taken'] == 0
