@@ -8,6 +8,8 @@
                                     # cards)
     python3 chip_smoke.py extras    # only phases 1, 2 and 18-21: the tools
                                     # beside the JAX extras
+    python3 chip_smoke.py bench     # only phases 1, 2 and 22: bench.py's
+                                    # whole ladder (about 20-30 minutes)
 
 Phases, each printing one line with the card's name and power limit:
 
@@ -37,6 +39,13 @@ Phases, each printing one line with the card's name and power limit:
                padding), K1 once (one event block).  A second pass (fresh app) gives the warm wall
                time, a third runs under torch.profiler and gives the
                device's busy share and its time by kernel kind;
+6a. bench   -- the port's bench entry point (tools/bench.py) at bench.py's
+               first rung: e2e_rung(512 channels, 2.16 Msps, CS16), one
+               app through 3 warm and 4 timed passes and the flush (block
+               16200: the unfused path), on the scale phase's filter
+               tables; the exact (channel, pass) ledger 112/112 with no
+               junk, other frames or duplicates, K2 and K1 launched; then
+               demod_only(1024);
 7. K2 taps  -- the kernel's debug_taps instantiation at 512 x 1800 symbols:
                exact against the plain version, taps included, and
                bit-equal in symbols, state, events and counters to the
@@ -146,7 +155,20 @@ Phases, each printing one line with the card's name and power limit:
 21. profile_e2e - the 512-channel capture through the four stages of
                tools/profile_e2e.py (upload; + channelizer; + demodulator;
                the full app path), two timed passes each: the wall of each,
-               and the full path's 16 frames per pass with their bytes.
+               and the full path's 16 frames per pass with their bytes;
+22. bench ladder - (subcommand bench only) tools/bench.main with bench.py's
+               default search (512, 1024, 2048 channels and 4096 in CU8),
+               each rung in a child process under bench.py's watchdog, and
+               --check-kernels: on the widest rung measured with every cell
+               decoded, K2 on the first block that completes frames, 256
+               rows (two whole 128-channel gate tiles from the first that
+               completes one; each channel's recursion is its own), and
+               K1 on that block's event block, both exact against their
+               plain versions.  Every rung is measured or
+               listed in the summary's failures with its reason.  Where two
+               or more cards are visible, tools/bench_scaling too (N = 1, 2,
+               4 cards, one nccl process each): equal PDU sets and counted
+               bytes equal to comm_model() at every N.
 
 Each kernel's line carries bound_ms, the least time the card could take
 for the same work: the larger of the bytes the function must move over the
@@ -188,6 +210,7 @@ import torch
 
 from dumphfdl_tpu_torch import constants as C
 from dumphfdl_tpu_torch.device import require_cuda
+from dumphfdl_tpu_torch.tools.alias import ALIAS_STEP, split_junk
 from dumphfdl_tpu_torch.tools.kernel_check import (
     compare_k2 as _compare_k2, cuda_ms, k1_bound, k2_bound,
     k2_pair as _k2_pair, launches as _launches, timed_ms,
@@ -209,7 +232,12 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+T0 = time.monotonic()
+
+
 def say(card: str, phase: str, **kv) -> None:
+    """One line of a phase's results; at_s is the script's wall so far."""
+    kv['at_s'] = round(time.monotonic() - T0, 1)
     print(f'[{card}] {phase}: ' + json.dumps(kv), flush=True)
 
 
@@ -431,30 +459,19 @@ def phase_golden(card: str, dev: torch.device) -> None:
         wall_s=wall)
 
 
-# A frame that fails its header FCS is junk: the app counts and drops it.
-# One kind is expected on the 1024-channel capture.  There the channels are
-# 3355 Hz apart and each leaves the channelizer at 6750 sps, so a
-# transmission two channels away (6710 Hz) folds onto a channel 40 Hz off
-# its centre, through the channel filter's stopband (-76 dB at that
-# offset).  The capture's noise lies below that: the modulator's 30 dB is
-# per wideband sample, about 86 dB in a channel's own band at this rate.
-# So a quiet channel two from an emitter may lock on the image while the
-# frame lasts and decode a frame of the emitter's mode that fails its FCS.
-# ALIAS_STEP names that neighbour; junk anywhere else, at another time or
-# of another mode fails the ledger.  The superstep phase shows the cause: the
-# same emissions under noise of NOISY_SNR_DB (about 30 dB in a channel's
-# band, 46 dB above the images) must decode with no junk at all.
-ALIAS_STEP = 2
-ALIAS_WINDOW = 64           # symbols around the emitter's frame start
+# The 1024-channel capture may decode alias images two channels from an
+# emitter as FCS-failing frames (tools/alias.py, ALIAS_STEP); the superstep
+# phase shows the cause: the same emissions under noise of NOISY_SNR_DB
+# (about 30 dB in a channel's band, 46 dB above the images) must decode with
+# no junk at all.
 NOISY_SNR_DB = -26.0
 
 
-def _ledger(events, emit_by_chan: dict, alias_step: int | None = None) -> dict:
+def _ledger(events, emit_by_chan: dict, alias_steps: tuple = ()) -> dict:
     """Every decoded frame against the emitted set: exact when each
     emitting channel decoded its frame once and nothing else came out.
-    With alias_step, FCS-failing frames on a quiet channel that many
-    channels from an emitter, of the emitter's mode and starting within
-    ALIAS_WINDOW symbols of the emitter's frame, are counted apart
+    FCS-failing frames that tools/alias.split_junk calls images of an
+    emitter's frame, alias_steps channels away, are counted apart
     (frames_alias_junk) and allowed."""
     cells, other, junk_evs, heard = {}, 0, [], {}
     for ev in events:
@@ -466,20 +483,11 @@ def _ledger(events, emit_by_chan: dict, alias_step: int | None = None) -> dict:
         exp = emit_by_chan.get(ev.channel)
         if exp is not None and ev.pdu[:len(exp)] == exp:
             cells[ev.channel] = cells.get(ev.channel, 0) + 1
-            heard[ev.channel] = (ev.start_symbol, ev.mode)
+            heard.setdefault(ev.channel, []).append((ev.start_symbol,
+                                                     ev.mode))
         else:
             other += 1
-    alias_at, junk_at = [], []
-    for ev in junk_evs:
-        near = [] if alias_step is None or ev.channel in emit_by_chan else \
-            [heard[c] for c in (ev.channel - alias_step,
-                                ev.channel + alias_step) if c in heard]
-        where = [ev.channel, ev.mode, ev.start_symbol]
-        if any(abs(ev.start_symbol - s0) <= ALIAS_WINDOW and ev.mode == m0
-               for s0, m0 in near):
-            alias_at.append(where)
-        else:
-            junk_at.append(where)
+    alias_at, junk_at = split_junk(junk_evs, emit_by_chan, heard, alias_steps)
     junk = len(junk_at)
     led = dict(frames_ok=sum(cells.values()), frames_expected=len(emit_by_chan),
                frames_junk=junk, frames_alias_junk=len(alias_at),
@@ -500,7 +508,7 @@ def _sync_all() -> None:
 
 
 def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
-                prof=None, drive=None, prepare=None, alias_step=None,
+                prof=None, drive=None, prepare=None, alias_steps=(),
                 mesh=None):
     """Build the app as the CLI does and decode the capture once:
     (set-up seconds, wall seconds of the decode, ledger, app).  drive(app,
@@ -532,7 +540,7 @@ def _scale_pass(argv: list[str], dev: torch.device, emit_by_chan: dict,
         rec.close()
         app.shutdown()
     app.smoke_events = rec.events
-    led = _ledger(rec.events, emit_by_chan, alias_step)
+    led = _ledger(rec.events, emit_by_chan, alias_steps)
     if not led['exact']:
         raise AssertionError(f'ledger not exact: {led}')
     return setup, wall, led, app
@@ -638,6 +646,93 @@ def phase_scale(card: str, dev: torch.device):
     return launches, cap
 
 
+def phase_bench(card: str, dev: torch.device) -> dict:
+    """bench.py's first rung through the port's bench entry point: one app,
+    3 warm and 4 timed passes and the flush, an exact (channel, pass)
+    ledger on the unfused path; then the demod-only measurement at 1024
+    channels.  Returns the wrappers' launches over the rung."""
+    from dumphfdl_tpu_torch.tools import bench
+    out = bench.e2e_rung(512, 2_160_000, 'CS16', device=dev, warm=3,
+                         passes=4)
+    launches = out['launches']
+    say(card, 'bench', **out)
+    if not out['exact'] or out['frames_ok'] != 112 \
+            or out['frames_expected_total'] != 112 or out['frames_junk'] \
+            or out['path'] != 'unfused' or not launches['tracker'] \
+            or not launches['viterbi27']:
+        raise AssertionError(f'bench rung: {out}')
+    demod = bench.demod_only(1024, device=dev)
+    say(card, 'bench demod_only', **demod)
+    if demod['frames'] or not demod['launches']['tracker']:
+        raise AssertionError(f'bench demod_only: {demod}')
+    return launches
+
+
+def phase_bench_ladder(card: str) -> list:
+    """bench.py's ladder through tools/bench.main (each rung in a child
+    process, --check-kernels), and where two or more cards are visible
+    tools/bench_scaling.  Returns the kernels line's entries of the widest
+    rung measured with every cell decoded."""
+    from dumphfdl_tpu_torch.tools import bench, bench_scaling
+    path = WORK / 'bench.json'
+    t0 = time.perf_counter()
+    rc = bench.main(['--check-kernels', '--out', str(path)])
+    wall = time.perf_counter() - t0
+    out = json.loads(path.read_text())
+    for r in out['rungs']:
+        say(card, 'bench rung', **{k: v for k, v in r.items()
+                                   if k != 'kernels'})
+    say(card, 'bench ladder', rc=rc, wall_s=wall,
+        **{k: v for k, v in out.items() if k not in ('rungs', 'demod_only')})
+    say(card, 'bench demod_only', **(out['demod_only'] or {}))
+    done = {f"{r['channels']}@{r['sample_rate']}@{r['sample_format']}"
+            for r in out['rungs'] if r['coverage_ok']}
+    labels = [f'{n}@{fs}@{fmt}' for n, fs, fmt in
+              bench.parse_search(bench.DEFAULT_SEARCH)]
+    if not all(lb in done or lb in out['failures'] for lb in labels):
+        raise AssertionError(f'bench ladder: a rung neither measured nor '
+                             f'failed: {out["search"]}, {out["failures"]}')
+    # a rung may fail for its size (its watchdog, CUDA out of memory); any
+    # other failure, and any measured rung whose ledger is not exact, is a
+    # fault
+    wrong = bench.faults(out)
+    if wrong or rc != (0 if out['ok'] else 1):
+        raise AssertionError(f'bench ladder: rc {rc}, {wrong}')
+    if not out['rungs']:
+        raise AssertionError('bench ladder: no rung measured')
+    widest = max(out['rungs'], key=lambda r: r['channels'])
+    k = widest['kernels']
+    where = dict(rung=f"{widest['channels']}@{widest['sample_rate']}@"
+                 f"{widest['sample_format']}", path=widest['path'])
+    say(card, 'bench K2', **where, **k['k2'])
+    say(card, 'bench K1', **where, **k['k1'])
+    if torch.cuda.device_count() >= 2:
+        spath = WORK / 'bench_scaling.json'
+        src = bench_scaling.main(['--out', str(spath)])
+        sc = json.loads(spath.read_text())
+        for pt in sc['points']:
+            say(card, 'bench_scaling', **{k_: v for k_, v in pt.items()
+                                          if k_ != 'decoded'})
+        if src or not sc['ok']:
+            raise AssertionError('bench_scaling: PDU sets or counted bytes '
+                                 'differ')
+    common = dict(route='cuda', max_abs_err=0.0, library_ms=None, **where)
+    return [
+        dict(name='tracker_bench', source='dumphfdl_tpu_torch/csrc/tracker.cu',
+             replaces='dumphfdl_tpu/dsp/tracker_pallas.py:103',
+             launches=widest['launches']['tracker'], ms=k['k2']['kernel_ms'],
+             plain_ms=k['k2']['plain_ms'], **common,
+             **{f: k['k2'][f] for f in ('bound_ms', 'bound_by', 'bound_bytes',
+                                        'bound_ops', 'chain_steps',
+                                        'kernel_alone_ms')}),
+        dict(name='viterbi27_bench', source='dumphfdl_tpu_torch/csrc/viterbi.cu',
+             replaces='dumphfdl_tpu/ops/fec_pallas.py:50',
+             launches=widest['launches']['viterbi27'],
+             ms=k['k1']['kernel_ms'], plain_ms=k['k1']['plain_ms'], **common,
+             **{f: k['k1'][f] for f in ('bound_ms', 'bound_by', 'bound_bytes',
+                                        'bound_ops', 'chain_steps')})]
+
+
 def phase_k2_taps(card: str, dev: torch.device) -> dict:
     """K2's debug_taps instantiation at 512 channels x 1800 symbols."""
     from dumphfdl_tpu_torch.dsp import tracker as trk
@@ -720,7 +815,7 @@ def phase_unfused(card: str, dev: torch.device, cap) -> list:
 def _superstep_pass(*args, **kw):
     """_scale_pass for the 1024-channel capture, whose ledger allows the
     alias images (ALIAS_STEP)."""
-    return _scale_pass(*args, alias_step=ALIAS_STEP, **kw)
+    return _scale_pass(*args, alias_steps=(ALIAS_STEP,), **kw)
 
 
 def _k2_events(dp: dict) -> int:
@@ -1263,65 +1358,27 @@ def _mp_layout() -> tuple[str, int, list[str], list[str]]:
 def _run_ranks(spec: str, backend: str, devices: list[str], argv: list[str],
                design: pathlib.Path, check_kernels: bool) -> list[dict]:
     """Run the mesh_mp child (dumphfdl_tpu_torch/tools/mesh_mp.py) once per
-    rank over localhost and return each rank's JSON result.  Each child's
-    output goes to a file under WORK; a child that fails or outlives
-    MP_CHILD_DEADLINE_S ends the phase: the others are killed and the phase
-    raises."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        port = sock.getsockname()[1]
-    n = len(devices)
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith('DUMPHFDL_')}
-    env.update(PYTHONPATH=str(ROOT), DUMPHFDL_COORDINATOR=f'127.0.0.1:{port}',
-               DUMPHFDL_NUM_PROCESSES=str(n))
-    # all ranks are on this host
-    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
-    env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
-    per_rank = 4 // n if spec == '2x2' else 1
-    procs, logs = [], []
-    for r, d in enumerate(devices):
-        out = WORK / f'mesh_mp.{spec}.{r}.out'
-        err = WORK / f'mesh_mp.{spec}.{r}.err'
-        logs.append((out, err))
-        cmd = [sys.executable, '-m', 'dumphfdl_tpu_torch.tools.mesh_mp',
-               '--mesh', spec, '--shards-per-rank', str(per_rank),
-               '--device', d, '--backend', backend,
-               '--timeout', str(MP_GROUP_TIMEOUT_S), '--design', str(design),
-               '--passes', '2', '--profile'] \
-            + (['--check-kernels'] if check_kernels else []) + ['--'] \
+    rank over localhost (parallel/multihost.launch_local_ranks) and return
+    each rank's JSON result.  Each child's output goes to a file under
+    WORK; a child that fails or outlives MP_CHILD_DEADLINE_S ends the
+    phase: the others are killed and the phase raises."""
+    from dumphfdl_tpu_torch.parallel import multihost
+    per_rank = 4 // len(devices) if spec == '2x2' else 1
+    cmds = [[sys.executable, '-m', 'dumphfdl_tpu_torch.tools.mesh_mp',
+             '--mesh', spec, '--shards-per-rank', str(per_rank),
+             '--device', d, '--backend', backend,
+             '--timeout', str(MP_GROUP_TIMEOUT_S), '--design', str(design),
+             '--passes', '2', '--profile']
+            + (['--check-kernels'] if check_kernels else []) + ['--']
             + [a.replace('mesh_mp.txt', f'mesh_mp.{spec}.{r}.txt')
                for a in argv]
-        with open(out, 'w') as fo, open(err, 'w') as fe:
-            procs.append(subprocess.Popen(
-                cmd, cwd=ROOT, stdout=fo, stderr=fe,
-                env={**env, 'DUMPHFDL_PROCESS_ID': str(r)}))
-    deadline = time.monotonic() + MP_CHILD_DEADLINE_S
+            for r, d in enumerate(devices)]
+    logdir = WORK / f'mesh_mp.{spec}'
+    logdir.mkdir(exist_ok=True)
     try:
-        while any(p.poll() is None for p in procs):
-            bad = [r for r, p in enumerate(procs) if p.poll()]
-            if bad or time.monotonic() > deadline:
-                r = bad[0] if bad else None
-                tail = logs[r][1].read_text()[-3000:] if bad else ''
-                raise AssertionError(
-                    f'mesh_mp {spec}: ' + (f'rank {r} exited with '
-                                           f'{procs[r].returncode}: {tail}'
-                                           if bad else 'children outlived '
-                                           f'{MP_CHILD_DEADLINE_S} s'))
-            time.sleep(0.5)
-        for r, p in enumerate(procs):
-            if p.returncode:
-                raise AssertionError(f'mesh_mp {spec}: rank {r} exited with '
-                                     f'{p.returncode}: '
-                                     f'{logs[r][1].read_text()[-3000:]}')
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [json.loads(out.read_text().strip().splitlines()[-1])
-            for out, _ in logs]
+        return multihost.launch_local_ranks(cmds, logdir, MP_CHILD_DEADLINE_S)
+    except RuntimeError as e:
+        raise AssertionError(f'mesh_mp {spec}: {e}') from None
 
 
 def phase_mesh_mp(card: str, cap, mesh_passes: dict, design: dict) -> dict:
@@ -1671,8 +1728,8 @@ def _ok_line() -> None:
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ['mesh'], ['extras']):
-        raise SystemExit('usage: chip_smoke.py [mesh|extras]')
+    if sys.argv[1:] not in ([], ['mesh'], ['extras'], ['bench']):
+        raise SystemExit('usage: chip_smoke.py [mesh|extras|bench]')
     dev = require_cuda()
     card = card_line()
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1698,11 +1755,19 @@ def main() -> int:
         print(card)
         _ok_line()
         return 0
+    if sys.argv[1:] == ['bench']:
+        rows = phase_bench_ladder(card)
+        print(card)
+        print(json.dumps({'kernels': rows}))
+        _ok_line()
+        return 0
     k1 = phase_k1(card, dev)
     k2 = phase_k2(card, dev)
     phase_golden(card, dev)
     with _shared_design() as design:
         launches, cap = phase_scale(card, dev)
+        # bench.py's first rung: the same channel list, so the same tables
+        bench_launches = phase_bench(card, dev)
         taps = phase_k2_taps(card, dev)
         unfused_events = phase_unfused(card, dev, cap)
         mesh_launches, k2_mesh, mesh_passes = phase_mesh(card, dev, cap,
@@ -1732,7 +1797,7 @@ def main() -> int:
     # wrapper (the event decode's gather route) on the soak_events run, the
     # only path that puts more events in a block than the fused capacity;
     # launches_sensitivity, _soak_events, _soak_stream and _profile_e2e
-    # over those phases' runs
+    # over those phases' runs, launches_bench over the bench phase's rung
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
     k2_ss['launches'] = ss_launches['tracker']
     k2_mesh['launches'] = mesh_launches['tracker']
@@ -1741,7 +1806,7 @@ def main() -> int:
              ('mesh_mp', mp_launches), ('sensitivity', sens_launches),
              ('soak_events', events_launches),
              ('soak_stream', stream_launches),
-             ('profile_e2e', profile_launches))
+             ('profile_e2e', profile_launches), ('bench', bench_launches))
     rows = ((k1, 'viterbi27'), (k2, 'tracker'), (k2_ss, 'tracker'),
             (k2_mesh, 'tracker'), (taps, 'tracker_taps'),
             (k1_one_mode, 'viterbi27_one_mode'))
@@ -1754,7 +1819,7 @@ def main() -> int:
             or not (k1['launches_mesh_mp'] and k2['launches_mesh_mp']) \
             or not all(k1[f'launches_{p}'] and k2[f'launches_{p}']
                        for p in ('sensitivity', 'soak_events', 'soak_stream',
-                                 'profile_e2e')):
+                                 'profile_e2e', 'bench')):
         raise AssertionError('a kernel of a path was never launched there')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',

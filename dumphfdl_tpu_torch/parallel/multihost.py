@@ -29,7 +29,12 @@ Environment variables (systemd-friendly):
 from __future__ import annotations
 
 import datetime
+import json
 import os
+import pathlib
+import socket
+import subprocess
+import time
 
 import torch
 import torch.distributed as dist
@@ -126,3 +131,61 @@ def global_shards(local_devices) -> list[tuple[int, torch.device]]:
             for rank, devs in enumerate(all_gather_host([str(d)
                                                          for d in mine]))
             for d in devs]
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+
+def launch_local_ranks(cmds: list[list[str]], logdir, deadline_s: float,
+                       env: dict | None = None) -> list[dict]:
+    """Run one process per command as the ranks of one torch.distributed
+    job on this host (rank r runs cmds[r], the environment naming a free
+    localhost port, the job's size and r; variables of env on top) and
+    return the JSON object on each rank's last line of output, in rank
+    order.  Rank r's output goes to logdir/r.out and logdir/r.err.  A rank
+    that exits non-zero, or ranks still running after deadline_s seconds,
+    end the job: the others are killed and it raises RuntimeError with the
+    failing rank's last lines of error output."""
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith('DUMPHFDL_')}
+    base['PYTHONPATH'] = os.pathsep.join(
+        p for p in (str(ROOT), base.get('PYTHONPATH', '')) if p)
+    # every rank is on this host
+    base.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    base.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    base.update(env or {})
+    base.update(DUMPHFDL_COORDINATOR=f'127.0.0.1:{port}',
+                DUMPHFDL_NUM_PROCESSES=str(len(cmds)))
+    logdir = pathlib.Path(logdir)
+    logs = [(logdir / f'{r}.out', logdir / f'{r}.err')
+            for r in range(len(cmds))]
+    procs = []
+    try:
+        for r, (cmd, (out, err)) in enumerate(zip(cmds, logs)):
+            with open(out, 'w') as fo, open(err, 'w') as fe:
+                procs.append(subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=fo, stderr=fe,
+                    env={**base, 'DUMPHFDL_PROCESS_ID': str(r)}))
+        deadline = time.monotonic() + deadline_s
+        while any(p.poll() is None for p in procs) \
+                or any(p.returncode for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll()]
+            if bad:
+                r = bad[0]
+                raise RuntimeError(f'rank {r} of {len(cmds)} exited with '
+                                   f'{procs[r].returncode}: '
+                                   f'{logs[r][1].read_text()[-3000:]}')
+            if time.monotonic() > deadline:
+                raise RuntimeError(f'ranks still running after '
+                                   f'{deadline_s:.0f} s')
+            time.sleep(0.2)
+        return [json.loads(out.read_text().strip().splitlines()[-1])
+                for out, _ in logs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

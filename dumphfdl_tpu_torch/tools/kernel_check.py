@@ -11,7 +11,13 @@ chip_smoke.py and the cross-process mesh's child program (tools/mesh_mp.py).
 * ``recording()`` keeps what every shard of a mesh hands K2's and K1's
   wrappers in its own stream during a pass, and ``check_shard_blocks``
   holds both wrappers exact against their plain versions on one shard's
-  own blocks and times them, K2 also by its launch alone.
+  own blocks and times them, K2 also by its launch alone (``k2_entry``,
+  ``k1_entry``: one block each).
+* ``first_frame_block(rows)`` keeps, during a run on one device, the first
+  block that completes a frame (cut to `rows` channels from the first tile
+  that completes one) and that block's event block; ``check_frame_block``
+  holds both wrappers exact against their plain versions on them and
+  times them (tools/bench.py's rungs).
 
 Nothing here runs without a CUDA device but the bounds and the counts.
 """
@@ -200,6 +206,119 @@ def recording():
         fec_cuda.viterbi_decode_many = k1_wrapper
 
 
+def k2_entry(state, x, lvl, steps: int, what: str) -> dict:
+    """K2's wrapper on one recorded block (gate on, carried state) against
+    the plain version: exact, or it raises; then timed through the wrapper
+    and by its launch alone.  Returns the block's line: shape, tiles,
+    events, times and the bound of the work of its active tiles."""
+    from ..dsp import tracker as trk
+    from ..dsp import tracker_cuda as tc
+    act, _ = tc.tile_activity(state, x, True)
+    r_k, r_p, t_p = k2_pair(state, x, lvl, steps, use_acq=True)
+    if compare_k2(what, *r_k, *r_p, tol=0.0) != 0.0:
+        raise AssertionError(f'K2 {what}: not exact')
+    ev = r_k[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)
+    tiles = int(act.sum())
+    return dict(
+        channels=x.shape[0], symbols=steps, gate=True, active_tiles=tiles,
+        tiles=len(act), events=int((ev[:, :, 0] > 0.5).sum()),
+        max_abs_err=0.0,
+        kernel_ms=cuda_ms(lambda: tc.tracker_block(state, x, lvl, steps,
+                                                   use_acq=True), 5),
+        kernel_alone_ms=tc.kernel_alone_ms(state, x, lvl, steps),
+        plain_ms=t_p,
+        # the work of this block's data: its active tiles' channels
+        **k2_bound(tiles * trk.CT, x.shape[1], steps))
+
+
+def k1_entry(softs, nbits, what: str) -> dict:
+    """K1's wrapper on one recorded event block against the plain version:
+    bit-exact, or it raises; timed.  Returns the event block's line."""
+    from ..ops import fec, fec_cuda
+    before = fec_cuda.launches
+    got = fec_cuda.viterbi_decode_many(softs, nbits)
+    if fec_cuda.launches != before + 1:
+        raise AssertionError(f'K1 {what}: the wrapper did not launch')
+    plain, t_p = timed_ms(lambda: [fec.viterbi_decode(s_, n_)
+                                   for s_, n_ in zip(softs, nbits)])
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        raise AssertionError(f'K1 {what}: differs from the plain version')
+    return dict(frames=[int(s_.shape[0]) for s_ in softs], nbits=list(nbits),
+                bit_exact=True,
+                kernel_ms=cuda_ms(lambda: fec_cuda.viterbi_decode_many(
+                    softs, nbits), 20),
+                plain_ms=t_p, **k1_bound(softs, got))
+
+
+@contextlib.contextmanager
+def first_frame_block(rows: int):
+    """While open, keeps the inputs of the first call of
+    tracker_cuda.tracker_block whose block completes a frame, cut to `rows`
+    channels of whole acquisition-gate tiles (trk.CT, 128 channels) from
+    the tile of the first channel that completes one (each channel's
+    recursion is its own, and the gate decides tile by tile), and the first
+    call of fec_cuda.viterbi_decode_many after it: that block's event
+    block, as events are collected one block behind and no block before it
+    completed a frame.  Yields a dict that gets 'k2': (state, x, level,
+    num_steps), 'rows': [first, end) and 'k1': (softs, nbits)."""
+    from ..dsp import tracker as trk
+    from ..dsp import tracker_cuda as tc
+    from ..ops import fec_cuda
+    if rows % trk.CT:
+        raise ValueError(f'{rows} rows are no whole number of tiles')
+    kept = {}
+    k2_wrapper, k1_wrapper = tc.tracker_block, fec_cuda.viterbi_decode_many
+
+    def k2_keeping(state, x, level, num_steps, use_acq=True,
+                   debug_taps=False):
+        if 'k2' in kept or debug_taps or not use_acq:
+            return k2_wrapper(state, x, level, num_steps, use_acq, debug_taps)
+        # the caller may write the new state into the old one's buffers
+        before = trk.TrackerState(*[None if v is None else v.clone()
+                                    for v in state])
+        out = k2_wrapper(state, x, level, num_steps, use_acq, debug_taps)
+        done = (out[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)[:, :, 0]
+                > 0.5).any(dim=1).nonzero()
+        if len(done):
+            c = x.shape[0]
+            first = min(int(done[0]) // trk.CT,
+                        max(c - rows, 0) // trk.CT) * trk.CT
+            cut = slice(first, first + rows)
+            kept['k2'] = (trk.TrackerState(*[None if v is None
+                                             else v[cut].clone()
+                                             for v in before]),
+                          x[cut].clone(), level[cut].clone(), num_steps)
+            kept['rows'] = [first, min(first + rows, c)]
+        return out
+
+    def k1_keeping(softs, nbits):
+        if 'k2' in kept and 'k1' not in kept:
+            kept['k1'] = ([s.clone() for s in softs], list(nbits))
+        return k1_wrapper(softs, nbits)
+
+    tc.tracker_block = k2_keeping
+    fec_cuda.viterbi_decode_many = k1_keeping
+    try:
+        yield kept
+    finally:
+        tc.tracker_block = k2_wrapper
+        fec_cuda.viterbi_decode_many = k1_wrapper
+
+
+def check_frame_block(kept: dict) -> dict:
+    """The blocks first_frame_block kept, each wrapper against its plain
+    version (exact) and timed: {'k2': K2's line, 'k1': K1's line}."""
+    if set(kept) != {'k2', 'rows', 'k1'}:
+        raise AssertionError(f'no frame block recorded: {sorted(kept)}')
+    st, x, lvl, steps = kept['k2']
+    with torch.cuda.device(x.device):
+        k2 = k2_entry(st, x, lvl, steps, 'first frame block')
+        if k2['events'] < 1:
+            raise AssertionError('K2: the kept block completed no frame')
+        return dict(k2=dict(rows=kept['rows'], **k2),
+                    k1=k1_entry(*kept['k1'], 'first frame block'))
+
+
 def check_shard_blocks(k2_seen: dict, k1_seen: dict, rows: int,
                        shards: int, n_sym: int = 1800) -> dict:
     """The recorded calls of a mesh pass over `shards` shards, each of
@@ -211,7 +330,6 @@ def check_shard_blocks(k2_seen: dict, k1_seen: dict, rows: int,
     'k2': [one dict per K2 block], 'k1': [one dict per event block]}."""
     from ..dsp import tracker as trk
     from ..dsp import tracker_cuda as tc
-    from ..ops import fec, fec_cuda
     blocks = {len(v) for v in k2_seen.values()}
     if len(k2_seen) != shards or len(blocks) != 1 or not k1_seen or \
             not set(k1_seen) <= set(k2_seen):
@@ -240,42 +358,15 @@ def check_shard_blocks(k2_seen: dict, k1_seen: dict, rows: int,
                                  f'completes a frame ({first})')
         for i in (first - 1, first):
             st, x, lvl, steps, _, _ = seen[i]
-            act, _ = tc.tile_activity(st, x, True)
-            r_k, r_p, t_p = k2_pair(st, x, lvl, steps, use_acq=True)
-            if compare_k2(f'mesh block {i}', *r_k, *r_p, tol=0.0) != 0.0:
-                raise AssertionError('mesh K2: not exact')
-            ev = r_k[2].reshape(-1, trk.K_EVENTS, trk.EV_FIELDS)
-            tiles = int(act.sum())
-            out['k2'].append(dict(
-                block=i, channels=x.shape[0], symbols=steps, gate=True,
-                active_tiles=tiles, tiles=len(act),
-                events=int((ev[:, :, 0] > 0.5).sum()), max_abs_err=0.0,
-                kernel_ms=cuda_ms(lambda: tc.tracker_block(
-                    st, x, lvl, steps, use_acq=True), 5),
-                kernel_alone_ms=tc.kernel_alone_ms(st, x, lvl, steps),
-                plain_ms=t_p,
-                # the work of this block's data: its active tiles' channels
-                **k2_bound(tiles * trk.CT, x.shape[1], steps)))
+            out['k2'].append(dict(block=i, **k2_entry(
+                st, x, lvl, steps, f'mesh block {i}')))
         last = out['k2'][-1]
         if last['events'] < 1 or last['active_tiles'] < 1:
             raise AssertionError('mesh K2: the compared block carried no '
                                  'frame')
         # K1 on the event blocks the same shard decoded
         for j, (softs, nbits) in enumerate(k1_seen[shard][:2]):
-            before = fec_cuda.launches
-            got = fec_cuda.viterbi_decode_many(softs, nbits)
-            if fec_cuda.launches != before + 1:
-                raise AssertionError('mesh K1: the wrapper did not launch')
-            plain, t_p1 = timed_ms(lambda: [fec.viterbi_decode(s_, n_)
-                                            for s_, n_ in zip(softs, nbits)])
-            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
-                raise AssertionError(f'mesh K1: event block {j} differs from '
-                                     'the plain version')
-            out['k1'].append(dict(
-                event_block=j, event_blocks=len(k1_seen[shard]),
-                frames=[int(s_.shape[0]) for s_ in softs], nbits=nbits,
-                bit_exact=True,
-                kernel_ms=cuda_ms(lambda: fec_cuda.viterbi_decode_many(
-                    softs, nbits), 20),
-                plain_ms=t_p1, **k1_bound(softs, got)))
+            out['k1'].append(dict(event_block=j,
+                                  event_blocks=len(k1_seen[shard]),
+                                  **k1_entry(softs, nbits, f'event block {j}')))
     return out

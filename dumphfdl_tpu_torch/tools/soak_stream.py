@@ -57,9 +57,8 @@ EMITTERS = 16
 # channelizer's output rate folds it onto the channel at 1024 channels
 # (3355 Hz apart, 6750 sps); at 512 channels nothing of it shows there
 # above the noise, and a false lock there still coincides with its frame.
-# Such junk is counted apart from other junk.
+# Such junk is counted apart from other junk (tools/alias.split_junk).
 IMAGE_STEPS = (1, 2)
-IMAGE_WINDOW = 64       # symbols between the image's and the frame's start
 
 
 def capture(nch: int, fs: int) -> dict:
@@ -95,6 +94,7 @@ def looped(wb: np.ndarray, start: int, n: int) -> np.ndarray:
 def ledger(events, emit_by_chan: dict, loops: int) -> dict:
     """The decoded frames against the schedule: every emitter's frame once
     per loop of the capture, with its bytes."""
+    from .alias import split_junk
     ok, other, junk, heard = {}, 0, [], {}
     for ev in events:
         if ev.pdu is None:
@@ -105,21 +105,11 @@ def ledger(events, emit_by_chan: dict, loops: int) -> dict:
         exp = emit_by_chan.get(ev.channel)
         if exp is not None and ev.pdu[:len(exp[0])] == exp[0]:
             ok[ev.channel] = ok.get(ev.channel, 0) + 1
-            heard.setdefault(ev.channel, []).append(ev.start_symbol)
+            heard.setdefault(ev.channel, []).append((ev.start_symbol,
+                                                     ev.mode))
         else:
             other += 1
-    alias, junk_at = [], []
-    for ev in junk:
-        near = [] if ev.channel in emit_by_chan else [
-            c for step in IMAGE_STEPS
-            for c in (ev.channel - step, ev.channel + step)
-            if c in emit_by_chan and emit_by_chan[c][1] == ev.mode]
-        where = [ev.channel, ev.mode, ev.start_symbol]
-        if any(abs(ev.start_symbol - s0) <= IMAGE_WINDOW
-               for c in near for s0 in heard.get(c, [])):
-            alias.append(where)
-        else:
-            junk_at.append(where)
+    alias, junk_at = split_junk(junk, emit_by_chan, heard, IMAGE_STEPS)
     led = dict(loops=loops, frames_expected=loops * len(emit_by_chan),
                frames_ok=sum(ok.values()), frames_other=other,
                frames_junk=len(junk_at), frames_alias_junk=len(alias),

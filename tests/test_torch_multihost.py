@@ -1,13 +1,10 @@
 """PyTorch port, parallel/multihost: the channel slice of each process
 against the JAX package's, the single-process return, and two real gloo
-processes over localhost, each through cli.build_app."""
+processes over localhost, each through cli.build_app, started by
+launch_local_ranks, which ends a job whose rank fails or runs late."""
 
-import json
-import os
-import pathlib
-import socket
-import subprocess
 import sys
+import time
 
 import pytest
 
@@ -18,7 +15,6 @@ import jax  # noqa: E402
 from dumphfdl_tpu.parallel import multihost as jmh  # noqa: E402
 from dumphfdl_tpu_torch.parallel import multihost as mh  # noqa: E402
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 _VARS = ('DUMPHFDL_COORDINATOR', 'DUMPHFDL_NUM_PROCESSES',
          'DUMPHFDL_PROCESS_ID')
 
@@ -106,36 +102,20 @@ torch.distributed.destroy_process_group()
 '''
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
+def _two_processes(freqs, tmp_path):
+    """Two ranks through mh.launch_local_ranks: each rank's JSON and its
+    standard error, in rank order."""
+    results = mh.launch_local_ranks(
+        [[sys.executable, '-c', _CHILD, *freqs]] * 2, tmp_path, 120)
+    return [(r, (tmp_path / f'{i}.err').read_text())
+            for i, r in enumerate(results)]
 
 
-def _two_processes(freqs):
-    env_base = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
-    env_base['PYTHONPATH'] = str(ROOT)
-    env_base['DUMPHFDL_COORDINATOR'] = f'127.0.0.1:{_free_port()}'
-    env_base['DUMPHFDL_NUM_PROCESSES'] = '2'
-    procs = []
-    for rank in range(2):
-        procs.append(subprocess.Popen(
-            [sys.executable, '-c', _CHILD, *freqs],
-            env={**env_base, 'DUMPHFDL_PROCESS_ID': str(rank)}, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    results = []
-    for p in procs:
-        out, err = p.communicate(timeout=120)
-        assert p.returncode == 0, err[-3000:]
-        results.append((json.loads(out.strip().splitlines()[-1]), err))
-    return sorted(results, key=lambda r: r[0]['rank'])
-
-
-def test_two_gloo_processes_slice_the_channel_list():
+def test_two_gloo_processes_slice_the_channel_list(tmp_path):
     """Two real processes rendezvous over localhost (gloo, a CPU device);
     cli.build_app gives each its contiguous slice and prints the JAX CLI's
     line."""
-    (r0, err0), (r1, err1) = _two_processes(['8912', '8927', '8942'])
+    (r0, err0), (r1, err1) = _two_processes(['8912', '8927', '8942'], tmp_path)
     for r in (r0, r1):
         assert r['nprocs'] == 2 and r['initialized']
         assert r['backend'] == 'gloo' and r['modules'] == []
@@ -146,10 +126,34 @@ def test_two_gloo_processes_slice_the_channel_list():
     assert 'multi-host: process 1/2, channels [2:3] of 3' in err1
 
 
-def test_a_process_without_channels_exits():
+def test_a_process_without_channels_exits(tmp_path):
     """One channel for two processes: the second has none and exits with
     the JAX CLI's message."""
-    (r0, _), (r1, err1) = _two_processes(['8912'])
+    (r0, _), (r1, err1) = _two_processes(['8912'], tmp_path)
     assert r0['local'] == [8_912_000]
     assert r1['local'] == 'error: no channels assigned to this host'
     assert 'channels [1:1] of 1' in err1
+
+
+_SLOW_OR_FAILING = r'''
+import os, sys, time
+if os.environ['DUMPHFDL_PROCESS_ID'] == sys.argv[1]:
+    sys.exit('rank fails on purpose')
+time.sleep(60)
+'''
+
+
+@pytest.mark.parametrize('failing, deadline, why', [
+    ('1', 60, 'rank 1 of 2 exited with 1: rank fails on purpose'),
+    ('none', 2, 'ranks still running after 2 s')])
+def test_launch_local_ranks_ends_the_job(tmp_path, failing, deadline, why):
+    """A rank that exits non-zero, or ranks that outlive the deadline, end
+    the job at once: the launcher raises with the reason and kills the
+    ranks still running."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError) as err:
+        mh.launch_local_ranks(
+            [[sys.executable, '-c', _SLOW_OR_FAILING, failing]] * 2,
+            tmp_path, deadline)
+    assert str(err.value).startswith(why)
+    assert time.monotonic() - t0 < 30
