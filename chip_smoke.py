@@ -6,9 +6,9 @@
                                     # multi-device paths and the pass they
                                     # are held to (for a machine with four
                                     # cards)
-    python3 chip_smoke.py extras    # only phases 1, 2 and 18-21: the tools
+    python3 chip_smoke.py extras    # only phases 1, 2 and 18-20: the tools
                                     # beside the JAX extras
-    python3 chip_smoke.py bench     # only phases 1, 2 and 22: bench.py's
+    python3 chip_smoke.py bench     # only phases 1, 2 and 21: bench.py's
                                     # whole ladder (about 20-30 minutes)
 
 Phases, each printing one line with the card's name and power limit:
@@ -125,7 +125,9 @@ Phases, each printing one line with the card's name and power limit:
 14. dryrun  -- parallel.sharding.dryrun_multichip at its default geometry
                (64 channels at 432 ksps, 8 emitters) on a 2x2 mesh;
 15. profile -- the golden capture through the CLI with --profile: the Chrome
-               trace exists, parses and holds K1's and K2's kernel events;
+               trace exists, parses and holds K1's and K2's kernel events
+               and every span of the decoder's superstep path, each K1
+               kernel inside an events.collect span;
 16. parity  -- the two scenarios of tests/golden/chip_parity.json through K1
                and K2 (tools/chip_parity.py): integers and digests exact,
                floats within their stated bounds;
@@ -152,11 +154,7 @@ Phases, each printing one line with the card's name and power limit:
                once with its bytes (FCS-failing frames next to an emitter,
                which the JAX package decodes too, counted apart), latency,
                resident and device memory after the warm-up and at the end;
-21. profile_e2e - the 512-channel capture through the four stages of
-               tools/profile_e2e.py (upload; + channelizer; + demodulator;
-               the full app path), two timed passes each: the wall of each,
-               and the full path's 16 frames per pass with their bytes;
-22. bench ladder - (subcommand bench only) tools/bench.main with bench.py's
+21. bench ladder - (subcommand bench only) tools/bench.main with bench.py's
                default search (512, 1024, 2048 channels and 4096 in CU8),
                each rung in a child process under bench.py's watchdog, and
                --check-kernels: on the widest rung measured with every cell
@@ -1498,6 +1496,12 @@ def phase_dryrun(card: str) -> None:
     say(card, 'dryrun', wall_s=time.perf_counter() - t0, **detail)
 
 
+# the spans a profiled superstep decode with frames records (utils/profiling)
+PROFILE_SPANS = {'ingest.read', 'ingest.upload', 'ingest.wait', 'rx.step',
+                 'rx.launch', 'rx.capture', 'rx.sync', 'events.collect',
+                 'app.parse', 'app.output'}
+
+
 def phase_profile(card: str, dev: torch.device) -> None:
     """The golden capture through the CLI with --profile."""
     import shutil
@@ -1516,18 +1520,31 @@ def phase_profile(card: str, dev: torch.device) -> None:
         '--output', f'decoded:text:file:path={WORK / "profile.txt"}',
     ] + [str(f / 1000) for f in man['frequencies']], device=dev)
     trace = json.loads((out / profiling.TRACE_NAME).read_text())
-    names = [e.get('name', '') for e in trace['traceEvents']
-             if e.get('cat') == 'kernel']
+    kernels = [e for e in trace['traceEvents'] if e.get('cat') == 'kernel']
+    names = [e.get('name', '') for e in kernels]
     k1 = sum('viterbi27_kernel' in n for n in names)
     k2 = sum('tracker_kernel' in n for n in names)
-    if rc != 0 or k1 < 1 or k2 < 1:
+    # the decoder's spans, on the kernels' time base: each K1 kernel runs
+    # inside the event decode that launched it and waited for it
+    spans = [e for e in trace['traceEvents']
+             if e.get('cat') == 'dumphfdl_span']
+    missing = PROFILE_SPANS - {e['name'] for e in spans}
+    collects = [(e['ts'], e['ts'] + e['dur']) for e in spans
+                if e['name'] == 'events.collect']
+    k1_outside = sum(
+        not any(a <= e['ts'] and e['ts'] + e['dur'] <= b
+                for a, b in collects)
+        for e in kernels if 'viterbi27_kernel' in e.get('name', ''))
+    if rc != 0 or k1 < 1 or k2 < 1 or missing or k1_outside:
         raise AssertionError(f'profile: rc {rc}, {k1} K1 and {k2} K2 kernel '
-                             f'events among {len(names)}')
+                             f'events among {len(names)}; spans missing '
+                             f'{sorted(missing)}; {k1_outside} K1 kernels '
+                             'outside every events.collect span')
     say(card, 'profile', trace=str((out / profiling.TRACE_NAME)
                                    .relative_to(ROOT)),
         trace_bytes=(out / profiling.TRACE_NAME).stat().st_size,
         trace_events=len(trace['traceEvents']), kernel_events=len(names),
-        k1_kernel_events=k1, k2_kernel_events=k2)
+        k1_kernel_events=k1, k2_kernel_events=k2, span_events=len(spans))
 
 
 def phase_parity(card: str, dev: torch.device) -> None:
@@ -1706,21 +1723,6 @@ def phase_soak_stream(card: str, dev: torch.device) -> dict:
     return launches
 
 
-def phase_profile_e2e(card: str, dev: torch.device) -> dict:
-    """The 512-channel capture through tools/profile_e2e.py's four stages.
-    Returns the wrappers' launches over the stages."""
-    from dumphfdl_tpu_torch.tools import profile_e2e
-    _zero_launches()
-    out = profile_e2e.profile(fs=2_160_000, channels=512, passes=2,
-                              device=dev, say=lambda line: None)
-    launches = _launches()
-    say(card, 'profile_e2e', launches=launches, **out)
-    if not out['exact'] or out['frames_emitted'] != 16 \
-            or out['frames_per_full_pass'] != 16:
-        raise AssertionError(f'profile_e2e: {out}')
-    return launches
-
-
 def _ok_line() -> None:
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1749,7 +1751,6 @@ def main() -> int:
     if sys.argv[1:] == ['extras']:
         with _shared_design():
             phase_soak_stream(card, dev)
-            phase_profile_e2e(card, dev)
         phase_sensitivity(card, dev)
         phase_soak_events(card, dev)
         print(card)
@@ -1776,7 +1777,6 @@ def main() -> int:
         mp_launches = phase_mesh_mp(card, cap, mesh_passes, design)
         # the same channel list: the scale phase's filter tables serve
         stream_launches = phase_soak_stream(card, dev)
-        profile_launches = phase_profile_e2e(card, dev)
     with _shared_design():
         ss_launches, k2_ss = phase_superstep(card, dev)
     taps['launches'] = phase_datadumps(card, dev)
@@ -1796,7 +1796,7 @@ def main() -> int:
     # the ranks' first pass on the cross-process 2x2 mesh; K1's one-mode
     # wrapper (the event decode's gather route) on the soak_events run, the
     # only path that puts more events in a block than the fused capacity;
-    # launches_sensitivity, _soak_events, _soak_stream and _profile_e2e
+    # launches_sensitivity, _soak_events and _soak_stream
     # over those phases' runs, launches_bench over the bench phase's rung
     k1['launches'], k2['launches'] = launches['viterbi27'], launches['tracker']
     k2_ss['launches'] = ss_launches['tracker']
@@ -1806,7 +1806,7 @@ def main() -> int:
              ('mesh_mp', mp_launches), ('sensitivity', sens_launches),
              ('soak_events', events_launches),
              ('soak_stream', stream_launches),
-             ('profile_e2e', profile_launches), ('bench', bench_launches))
+             ('bench', bench_launches))
     rows = ((k1, 'viterbi27'), (k2, 'tracker'), (k2_ss, 'tracker'),
             (k2_mesh, 'tracker'), (taps, 'tracker_taps'),
             (k1_one_mode, 'viterbi27_one_mode'))
@@ -1819,7 +1819,7 @@ def main() -> int:
             or not (k1['launches_mesh_mp'] and k2['launches_mesh_mp']) \
             or not all(k1[f'launches_{p}'] and k2[f'launches_{p}']
                        for p in ('sensitivity', 'soak_events', 'soak_stream',
-                                 'profile_e2e', 'bench')):
+                                 'bench')):
         raise AssertionError('a kernel of a path was never launched there')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',

@@ -26,6 +26,7 @@ from .protocol.pdu import PduMetadata, parse_pdu
 from .protocol.runtime import ProtocolContext
 from .dsp.channel import FrameEvent
 from .dsp.receiver import WidebandReceiver
+from .utils import profiling
 
 
 def level_to_db(level: float) -> float:
@@ -163,7 +164,12 @@ class HfdlApp:
                                           int(c[i, j]))
 
     def handle_events(self, events: list[FrameEvent]) -> None:
+        """Parse and output the decoded frames.  Each frame's parse and
+        output are the spans 'app.parse' and 'app.output'
+        (utils/profiling), with the block whose table held it."""
         self.publish_demod_counters()
+        block = getattr(self.receiver.bank, 'collected_block', -1) \
+            if profiling.recording() else -1
         for ev in events:
             if ev.pdu is None:
                 continue
@@ -173,16 +179,22 @@ class HfdlApp:
                 # it without deep parsing unless corrupted PDUs are wanted
                 self.frames_junk += 1
                 if self.ctx.options.output_corrupted_pdus:
-                    trees = parse_pdu(ev.pdu, meta, self.ctx)
-                    if trees:
-                        self.outputs.dispatch(meta, trees)
+                    self._parse_and_output(ev, meta, block)
                 else:
                     self._count_junk(ev.pdu, meta)
                 continue
-            trees = parse_pdu(ev.pdu, meta, self.ctx)
+            self._parse_and_output(ev, meta, block)
             self.frames_decoded += 1
-            if trees:
-                self.outputs.dispatch(meta, trees)
+
+    def _parse_and_output(self, ev: FrameEvent, meta: PduMetadata,
+                          block: int) -> None:
+        sp = profiling.begin('app.parse', block, 1)
+        trees = parse_pdu(ev.pdu, meta, self.ctx)
+        profiling.end(sp)
+        if trees:
+            sp = profiling.begin('app.output', block, 1)
+            self.outputs.dispatch(meta, trees)
+            profiling.end(sp)
 
     def _count_junk(self, pdu: bytes, meta: PduMetadata) -> None:
         """StatsD parity for skipped junk frames (frames.processed plus

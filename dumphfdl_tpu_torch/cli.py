@@ -131,9 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                           'current directory (takes the unfused path)')
     obs.add_argument('--profile', metavar='DIR',
                      help='record a torch.profiler trace of the run (host '
-                          'operations and the card\'s kernels) as a Chrome '
-                          'trace in DIR (the gperftools -DPROFILING bracket '
-                          'of the reference, main.c:766-768)')
+                          'operations, the decoder\'s own spans and the '
+                          'card\'s kernels) as a Chrome trace in DIR (the '
+                          'gperftools -DPROFILING bracket of the reference, '
+                          'main.c:766-768)')
 
     p.add_argument('frequencies', nargs='*', type=float, metavar='FREQ',
                    help='HFDL channel frequencies in kHz')
@@ -254,6 +255,7 @@ def main(argv: list[str] | None = None, device=None) -> int:
     if args.profile:
         from .utils import profiling
         prof = profiling.profiler(device)
+        profiling.clear()       # the trace holds this run's spans only
         prof.start()
         print(f'profiling to {args.profile} (view {profiling.TRACE_NAME} '
               'with Perfetto or chrome://tracing)', file=sys.stderr)

@@ -29,6 +29,7 @@ import torch
 from .. import constants as C
 from ..ops import crc
 from ..parallel import multihost
+from ..utils import profiling
 from . import backend
 from . import tracker_cuda
 from .tracker import (EV_FIELDS, HALO, K_EVENTS, TrackerState,
@@ -281,18 +282,19 @@ class _Readback(NamedTuple):
     device_table: torch.Tensor
     host_table: torch.Tensor
     done: object            # torch.cuda.Event, or None on the CPU
+    block: int = -1         # the bank's index of the block it came from
 
 
-def _start_readback(ev_table: torch.Tensor) -> _Readback:
+def _start_readback(ev_table: torch.Tensor, block: int = -1) -> _Readback:
     if ev_table.device.type != 'cuda':
-        return _Readback(ev_table, ev_table, None)
+        return _Readback(ev_table, ev_table, None, block)
     host = torch.empty(ev_table.shape, dtype=ev_table.dtype, pin_memory=True)
     host.copy_(ev_table, non_blocking=True)
     # the copy ran on the table's device; record there, not on whatever
     # device is current
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(ev_table.device))
-    return _Readback(ev_table, host, done)
+    return _Readback(ev_table, host, done, block)
 
 
 @dataclasses.dataclass
@@ -303,7 +305,12 @@ class ChannelBank:
     block's events, so the event-table copy of block N-1 overlaps block N's
     device work; drain_events() collects the last one.
     fused_event_decode is the number of frames decoded per block in one
-    padded batch (e_max); events past it take the per-mode gather path."""
+    padded batch (e_max); events past it take the per-mode gather path.
+
+    Spans (utils/profiling), each with the block's index: a block's launch
+    up to its table's readback start ('rx.launch'), the decode of a table
+    ('events.collect', with its frames) and the host's waits on the device
+    inside it ('rx.sync')."""
     num_channels: int
     device: torch.device
     fused_event_decode: int = 64
@@ -327,6 +334,8 @@ class ChannelBank:
         self._lvl_tail = torch.ones((c, HALO), dtype=torch.float32, device=dev)
         self._pending = None
         self.last_counters = None
+        self.blocks = 0                 # blocks launched
+        self.collected_block = -1       # block of the last table decoded
 
     def _check_block_invariant(self, num_steps: int) -> None:
         # an event's data (up to a double-slot frame back) must still be in
@@ -347,6 +356,7 @@ class ChannelBank:
         table's copy to the host, and return the previous block's readback
         for _collect (None on the first block).  A mesh launches every
         shard's block before it collects any."""
+        sp = profiling.begin('rx.launch', self.blocks)
         x = torch.as_tensor(samples, dtype=torch.complex64, device=self.device)
         num_steps = int(x.shape[1] // C.SPS)
         self._check_block_invariant(num_steps)
@@ -371,11 +381,14 @@ class ChannelBank:
             self.dumps.write('costas_dphi', taps[:, :, 0].T)
             self.dumps.write('costas_err', taps[:, :, 1].T)
             self.dumps.write('symsync_tau', taps[:, :, 2].T)
-        return self._swap_pending(ev_table, counters)
+        rb = self._swap_pending(ev_table, counters)
+        profiling.end(sp)
+        return rb
 
     def process_fused(self, chan) -> list[FrameEvent]:
         """Consume one out_chunk from a Channelizer's fs1 ring: resample +
         AGC + MF + tracker + ring append, then collect events."""
+        sp = profiling.begin('rx.launch', self.blocks)
         num_steps = chan.out_chunk // C.SPS
         self._check_block_invariant(num_steps)
         rs_const = (chan._rs_taps, chan._rs_num, chan._rs_den,
@@ -387,18 +400,19 @@ class ChannelBank:
             self._ringmeta, self._tail, self._lvl_tail, chan._fs1_ring,
             chan.rs_device_state(), chan._bank, num_steps, rs_const)
         chan.consume_chunk(new_rs)
-        return self._finish_step(ev_table, counters)
+        rb = self._swap_pending(ev_table, counters)
+        profiling.end(sp)
+        return self._collect(rb)
 
     def _swap_pending(self, ev_table, counters) -> '_Readback | None':
         self.last_counters = counters    # (C, 4): A2, M1, M1-miss, overflow
-        prev, self._pending = self._pending, _start_readback(ev_table)
+        prev = self._pending
+        self._pending = _start_readback(ev_table, self.blocks)
+        self.blocks += 1
         return prev
 
     def _collect(self, rb: '_Readback | None') -> list[FrameEvent]:
         return self._collect_events(rb) if rb is not None else []
-
-    def _finish_step(self, ev_table, counters) -> list[FrameEvent]:
-        return self._collect(self._swap_pending(ev_table, counters))
 
     def drain_events(self) -> list[FrameEvent]:
         """Collect the deferred block's events."""
@@ -407,8 +421,17 @@ class ChannelBank:
 
     def _collect_events(self, rb: _Readback) -> list[FrameEvent]:
         """Decode completed frames of one block from its event table."""
+        sp = profiling.begin('events.collect', rb.block)
+        events = self._decode_table(rb)
+        self.collected_block = rb.block
+        profiling.end(sp, len(events))
+        return events
+
+    def _decode_table(self, rb: _Readback) -> list[FrameEvent]:
         if rb.done is not None:
+            sync = profiling.begin('rx.sync', rb.block)
             rb.done.synchronize()
+            profiling.end(sync)
         table = rb.host_table.numpy().reshape(self._c, K_EVENTS, EV_FIELDS)
         valid = table[:, :, 0] > 0.5
         if not valid.any():
@@ -428,8 +451,11 @@ class ChannelBank:
         need_gather = list(range(len(events)))
         if self.fused_event_decode:
             dec = fused_collect(self.symring, self._ringmeta[1],
-                                rb.device_table,
-                                self.fused_event_decode).cpu().numpy()
+                                rb.device_table, self.fused_event_decode)
+            # the copy waits for the decode, queued behind the newest block
+            sync = profiling.begin('rx.sync', rb.block)
+            dec = dec.cpu().numpy()
+            profiling.end(sync)
             by_row = {int(r): j for j, r in enumerate(dec[:, 0]) if r >= 0}
             need_gather = []
             for i, ev in enumerate(events):
@@ -446,11 +472,12 @@ class ChannelBank:
                     fcs_ok=bool(dec[j, 1]))
         if need_gather:
             events = self._decode_by_gather(events, np.asarray(need_gather),
-                                            chans, start22s, modes, bitmasks)
+                                            chans, start22s, modes, bitmasks,
+                                            rb.block)
         return events
 
     def _decode_by_gather(self, events, idxs, chans, start22s, modes,
-                          bitmasks) -> list[FrameEvent]:
+                          bitmasks, block: int) -> list[FrameEvent]:
         """Gather + decode the given events on the device in per-mode
         batches (padded to powers of two); only the bits come back."""
         dev = self.device
@@ -470,7 +497,10 @@ class ChannelBank:
                     pad(chans))[:, :p.num_data_symbols]
                 bits = backend.decode_frame_batch(syms, pad(bitmasks) != 0,
                                                   int(mode))
-                pdus = backend.pdu_bytes_from_bits(bits[:n].cpu().numpy())
+                sync = profiling.begin('rx.sync', block)
+                bits = bits[:n].cpu().numpy()
+                profiling.end(sync)
+                pdus = backend.pdu_bytes_from_bits(bits)
                 for r, pdu in zip(sel, pdus):
                     events[r] = events[r]._replace(
                         pdu=pdu, fcs_ok=crc.pdu_fcs_ok(pdu))

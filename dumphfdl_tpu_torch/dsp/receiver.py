@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..utils import profiling
 from .channel import ChannelBank, FrameEvent
 from .frontend import Channelizer
 
@@ -80,22 +81,37 @@ class WidebandReceiver:
 
     def process_packed(self, packed: torch.Tensor) -> list[FrameEvent]:
         """Superstep path: one uploaded raw chunk (SuperstepEngine.upload)
-        in, the previous super-block's events out."""
-        self.sample_clock += self.superstep.plan.wb_chunk
-        return self.superstep.process_packed(packed)
+        in, the previous super-block's events out.  The call is the span
+        'rx.step' (utils/profiling), with the stream samples it takes."""
+        n = self.superstep.plan.wb_chunk
+        sp = profiling.begin('rx.step', self.bank.blocks, n)
+        self.sample_clock += n
+        events = self.superstep.process_packed(packed)
+        profiling.end(sp)
+        return events
 
     def process(self, wideband) -> list[FrameEvent]:
-        """Feed wideband complex samples; returns completed frames."""
+        """Feed wideband complex samples; returns completed frames.  The
+        call is the span 'rx.step' (utils/profiling), with the stream
+        samples it takes; the channelizer's part of it is an 'rx.launch'."""
+        sp = profiling.begin('rx.step', self.bank.blocks, len(wideband))
         self.sample_clock += len(wideband)
         events: list[FrameEvent] = []
+        chz = self.channelizer
         if self.fused and self.bank.dumps is None:
-            self.channelizer.ingest(wideband)
-            self.channelizer.channelize_available()
-            while self.channelizer.chunk_ready():
-                events.extend(self.bank.process_fused(self.channelizer))
-            return events
-        for chunk in self.channelizer.process_device(wideband):
-            events.extend(self.bank.process(chunk))
+            launch = profiling.begin('rx.launch', self.bank.blocks)
+            chz.ingest(wideband)
+            chz.channelize_available()
+            profiling.end(launch)
+            while chz.chunk_ready():
+                events.extend(self.bank.process_fused(chz))
+        else:
+            launch = profiling.begin('rx.launch', self.bank.blocks)
+            chunks = chz.process_device(wideband)
+            profiling.end(launch)
+            for chunk in chunks:
+                events.extend(self.bank.process(chunk))
+        profiling.end(sp)
         return events
 
     def flush(self) -> list[FrameEvent]:

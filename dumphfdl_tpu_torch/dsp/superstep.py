@@ -33,7 +33,8 @@ later block replays.  Every carried value lives in a fixed buffer that the
 step updates in place; the step's temporaries belong to the graph's pool.
 On the CPU the same ``_step`` runs eagerly.  A capture that fails raises.
 The event table's readback and the event decode stay outside the graph
-(ChannelBank._finish_step), as they are outside the step on every path.
+(ChannelBank._swap_pending, _collect), as they are outside the step on
+every path.
 
 The resampler introduces one block of latency: block j's demod consumes
 the fs1 samples produced by block j-1 (with +-taps/2 lookahead into block
@@ -51,6 +52,7 @@ from .. import constants as C
 from ..device import on
 from ..io import formats
 from ..io import ingest
+from ..utils import profiling
 from .channel import (MAX_BLOCK_SYMBOLS, AgcState, _ring_slide,
                       channel_step)
 from .tracker import EV_FIELDS, K_EVENTS, TrackerState
@@ -203,8 +205,10 @@ class SuperstepEngine:
         """One super-block: run the step on the uploaded chunk (eagerly
         the first time, then as a graph replay) and hand the event table
         to the bank's collector, which returns the previous block's
-        events."""
+        events.  Everything up to the table's readback start is the span
+        'rx.launch' (utils/profiling), a capture inside it 'rx.capture'."""
         b = self.bank
+        sp = profiling.begin('rx.launch', b.blocks)
         self._adopt_state()
         self._raw.copy_(packed, non_blocking=True)
         if not self.use_graph or self.blocks_done == 0:
@@ -220,18 +224,22 @@ class SuperstepEngine:
         self.blocks_done += 1
         # the step's output buffers are overwritten by the next block, the
         # collector reads this block's table one block later
-        return b._finish_step(self._ev_table.clone(), self._counters.clone())
+        rb = b._swap_pending(self._ev_table.clone(), self._counters.clone())
+        profiling.end(sp)
+        return b._collect(rb)
 
     def _capture(self) -> None:
         """Record one step into a CUDA graph.  K2's wrapper counts the one
         launch it records here; what the graph runs afterwards is counted
         in self.replays, not in the wrapper's count.  Other threads (the
         uploader) keep working while this thread records."""
+        sp = profiling.begin('rx.capture', self.bank.blocks)
         with on(self.device):     # the capture stream is the current device's
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, capture_error_mode='thread_local'):
                 self._step()
         self._graph = graph
+        profiling.end(sp)
 
     def verify_graph(self, packed: torch.Tensor) -> int:
         """Hold the graph against the eager step on one uploaded chunk:

@@ -22,6 +22,7 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.prefetch import ahead
 from . import formats
 from .native import SampleRing
@@ -129,18 +130,24 @@ def file_chunks(fh, fmt: str, chunk_bytes: int,
     deliver full blocks like the reference's blocking fread
     (input-file.c:35-52); the final chunk may be shorter, unless
     pad_final, which silence-pads it to exactly chunk_bytes (for
-    fixed-shape consumers like the superstep)."""
+    fixed-shape consumers like the superstep).  The reads that fill chunk
+    k are the span 'ingest.read' (utils/profiling), with the bytes they
+    gathered."""
     bps = formats.bytes_per_sample(fmt)
     chunk_bytes = max(bps, chunk_bytes - chunk_bytes % bps)
     pending = b''
     eof = False
+    k = 0
     while not eof and not (stop is not None and stop.is_set()):
+        sp = profiling.begin('ingest.read', k)
         while len(pending) < chunk_bytes:
             data = fh.read(chunk_bytes - len(pending))
             if not data:
                 eof = True
                 break
             pending += data
+        profiling.end(sp, len(pending))
+        k += 1
         emit = pending[:len(pending) - len(pending) % bps]
         pending = pending[len(emit):]
         if emit and pad_final and len(emit) < chunk_bytes:

@@ -8,9 +8,14 @@ max(transfer, compute) instead of their sum.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from collections.abc import Callable, Iterable, Iterator
+
+import torch
+
+from . import profiling
 
 
 def ahead(items: Iterable, put: Callable, depth: int = 2,
@@ -18,27 +23,44 @@ def ahead(items: Iterable, put: Callable, depth: int = 2,
     """Yield put(item) for each item; a daemon thread runs `depth` items
     ahead of the consumer (the bounded queue is backpressure on the
     producer).  An exception in the producer or in put surfaces in the
-    consumer."""
+    consumer.  Spans (utils/profiling): put on the worker thread
+    ('ingest.upload', with the samples of a tensor put returns) and the
+    consumer's wait for an item ('ingest.wait'), each with the item's
+    index."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     sentinel = object()
 
     def worker():
         try:
-            for item in items:
-                q.put(put(item))
+            for k, item in enumerate(items):
+                sp = profiling.begin('ingest.upload', k)
+                out = put(item)
+                if sp is not None:
+                    profiling.end(sp, _samples(out))
+                q.put(out)
         except BaseException as e:          # surface errors to the consumer
             q.put((sentinel, e))
             return
         q.put((sentinel, None))
 
     threading.Thread(target=worker, daemon=True, name=name).start()
-    while True:
+    for k in itertools.count():
+        sp = profiling.begin('ingest.wait', k)
         item = q.get()
+        profiling.end(sp)
         if isinstance(item, tuple) and len(item) == 2 and item[0] is sentinel:
             if item[1] is not None:
                 raise item[1]
             return
         yield item
+
+
+def _samples(out) -> int:
+    """Complex samples in what an upload returns: a complex tensor, or the
+    interleaved I/Q pairs of a native-width one; 0 for anything else."""
+    if not isinstance(out, torch.Tensor):
+        return 0
+    return out.numel() if out.is_complex() else out.numel() // 2
 
 
 def device_prefetch(blocks: Iterable, device, depth: int = 2,

@@ -170,7 +170,6 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
             'dumphfdl_tpu_torch/tools/sensitivity.py',
             'dumphfdl_tpu_torch/tools/soak_events.py',
             'dumphfdl_tpu_torch/tools/soak_stream.py',
-            'dumphfdl_tpu_torch/tools/profile_e2e.py',
             'dumphfdl_tpu_torch/tools/alias.py',
             'dumphfdl_tpu_torch/tools/bench.py',
             'dumphfdl_tpu_torch/tools/bench_scaling.py'} <= {

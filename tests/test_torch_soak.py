@@ -13,9 +13,12 @@
   131072 samples, 4.9 s at 108 ksps): the run shows the pacing, the
   warm-up, the continuous stream and the ledger; keeping up in real time
   is the card's to show (chip_smoke.py phase soak_stream).
+
+And what every tool of dumphfdl_tpu_torch/tools takes for its device.
 """
 
 import concurrent.futures
+import importlib
 import types
 
 import numpy as np
@@ -137,3 +140,14 @@ def test_soak_stream_paced_run_is_exact():
     assert out['paced_stream_s'] > 1.0
     assert out['latency_s']['n'] > 0 and out['latency_s']['p50'] > 0
     assert out['rss_end_kb'] > 0 and out['device_memory_end'] == {}
+
+
+@pytest.mark.parametrize('tool', ['sensitivity', 'soak_events',
+                                  'soak_stream'])
+def test_tools_run_on_the_card_unless_asked(tool, monkeypatch):
+    """Without --device a tool takes the CUDA device, and on a machine
+    without one it stops before any work (no fallback to the CPU)."""
+    mod = importlib.import_module(f'dumphfdl_tpu_torch.tools.{tool}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main([])
