@@ -40,7 +40,7 @@ class AppConfig:
     device: torch.device = None         # required: no default device
     centerfreq: int | None = None       # Hz; None -> auto midpoint
     freq_offset: int = 0                # --freq-offset
-    read_buffer_size: int = 320_000     # bytes (input-file.c:15)
+    read_buffer_size: int = 320_000     # mesh file reads (input-file.c:15)
     sample_format: str = 'CF32'
     output_queue_hwm: int = 1000
     nf_stats_interval: int = 10
@@ -212,7 +212,12 @@ class HfdlApp:
         """Offline decode of a raw I/Q file ('-' = stdin, input-file.c).
         A background thread reads and uploads ahead of the device work
         (io/ingest.py); the integer formats upload in their native width
-        and convert on the device."""
+        and convert on the device.  The chunk each branch reads: on the
+        superstep one super-block (the receiver's raw_chunk_bytes); on a
+        mesh cfg.read_buffer_size (the sharded receiver cuts its own
+        super-blocks); otherwise the receiver's file_chunk_samples, whole
+        overlap-save frames, so that each receiver call channelizes one
+        batch of them."""
         from .io import formats, ingest
         fmt = (sample_format or self.cfg.sample_format).upper()
         fh = sys.stdin.buffer if path == '-' else open(path, 'rb')
@@ -230,13 +235,16 @@ class HfdlApp:
                     self.handle_events(self.receiver.process_packed(pk))
                 self.handle_events(self.receiver.flush())
                 return 0
-            raw_iter = ingest.file_chunks(fh, fmt, self.cfg.read_buffer_size,
-                                          stop=self._stop)
             if self.cfg.mesh:
                 # host chunks: the sharded receiver cuts each super-block
                 # into its shards' spans, so samples go up once, sharded
+                raw_iter = ingest.file_chunks(
+                    fh, fmt, self.cfg.read_buffer_size, stop=self._stop)
                 stream = (formats.convert(raw, fmt) for raw in raw_iter)
             else:
+                raw_iter = ingest.file_chunks(
+                    fh, fmt, self.receiver.file_chunk_samples
+                    * formats.bytes_per_sample(fmt), stop=self._stop)
                 stream = ingest.uploaded_stream(raw_iter, fmt,
                                                 self.cfg.device)
             for xd in stream:

@@ -65,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument('--device-settings', metavar='K1=V1,...',
                      help='device-specific settings (SoapySDR)')
     src.add_argument('--read-buffer-size', type=int, default=320_000,
-                     help='file input buffer size in bytes')
+                     help='file input buffer size in bytes, on a --mesh '
+                          '(a single device reads whole channelizer frames '
+                          'or super-blocks)')
     src.add_argument('--fft-threads', type=int, default=4,
                      help='accepted for compatibility (cuFFT manages threads)')
     src.add_argument('--demod-block', type=int, default=5400,

@@ -449,6 +449,8 @@ class Channelizer(Fs1Resampler):
         self._wb_rcur = 0
         self._mixer_phase = torch.zeros(self.rows, dtype=torch.float32,
                                         device=self.device)
+        self.ddc_batches = 0            # DDC batches channelize_available ran
+        self.ddc_frames_run = 0         # overlap-save frames in them
 
     def tables_from_numpy(self, idx: np.ndarray, hwin: np.ndarray,
                           residual64: np.ndarray) -> None:
@@ -496,7 +498,8 @@ class Channelizer(Fs1Resampler):
         self._wb_fill += n
 
     def channelize_available(self) -> None:
-        """Channelize every complete frame batch into the fs1 ring."""
+        """Channelize every complete frame into the fs1 ring, in batches of
+        the largest power of two of frames at hand (at most _max_frames)."""
         geo = self.geo
         dev = self.device
         while (avail := (self._wb_fill - geo.overlap_length)
@@ -513,6 +516,8 @@ class Channelizer(Fs1Resampler):
             self._append_fs1(out)
             self._wb_rcur = (self._wb_rcur + n_now * geo.input_size) % self._rw
             self._wb_fill -= n_now * geo.input_size
+            self.ddc_batches += 1
+            self.ddc_frames_run += n_now
 
     def channelize_frames(self, frames, phase0: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:

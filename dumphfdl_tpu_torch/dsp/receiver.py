@@ -7,11 +7,15 @@ length:
 
 * superstep (dsp/superstep.py): the rate's cadence aligns (plan_superstep)
   and block_len is at least the aligned block -- one CUDA graph per
-  super-block, fed raw bytes through process_packed;
+  super-block, fed raw bytes through process_packed; a file is read in
+  super-blocks (raw_chunk_bytes);
 * fused: the exact resampler cursor fits and block_len is a whole number of
   its cosets -- the demod step resamples straight from the fs1 ring;
 * unfused: everything else, and any receiver with --datadumps on -- the
   channelizer resamples into 5400-sps blocks for ChannelBank.process.
+
+On the fused and unfused paths a file is read in file_chunk_samples: whole
+overlap-save frames, so that each process() call channelizes one batch.
 """
 
 from __future__ import annotations
@@ -72,6 +76,22 @@ class WidebandReceiver:
             else self.superstep.raw_chunk_bytes
 
     @property
+    def file_chunk_samples(self) -> int:
+        """Wideband samples per process() call on the file path: n whole
+        overlap-save frames, n the largest power of two whose frames fit in
+        the wideband span of one demod block (block_len * sample_rate /
+        5400 samples), at least 1 and at most the channelizer's batch cap.
+        The wideband ring starts holding exactly the overlap, so every such
+        call channelizes one batch of n frames."""
+        chz = self.channelizer
+        step = chz.geo.input_size
+        n = 1
+        while (2 * n <= chz._max_frames and 2 * n * step * C.INTERNAL_RATE
+               <= self.block_len * self.sample_rate):
+            n *= 2
+        return n * step
+
+    @property
     def engine(self):
         """The superstep engine while this receiver runs on it: engaged,
         and no --datadumps wanted (dumps take the unfused path from the
@@ -93,22 +113,24 @@ class WidebandReceiver:
     def process(self, wideband) -> list[FrameEvent]:
         """Feed wideband complex samples; returns completed frames.  The
         call is the span 'rx.step' (utils/profiling), with the stream
-        samples it takes; the channelizer's part of it is an 'rx.launch'."""
+        samples it takes; the channelizer's part of it is an 'rx.launch',
+        with the overlap-save frames it channelized."""
         sp = profiling.begin('rx.step', self.bank.blocks, len(wideband))
         self.sample_clock += len(wideband)
         events: list[FrameEvent] = []
         chz = self.channelizer
+        frames = chz.ddc_frames_run
         if self.fused and self.bank.dumps is None:
             launch = profiling.begin('rx.launch', self.bank.blocks)
             chz.ingest(wideband)
             chz.channelize_available()
-            profiling.end(launch)
+            profiling.end(launch, chz.ddc_frames_run - frames)
             while chz.chunk_ready():
                 events.extend(self.bank.process_fused(chz))
         else:
             launch = profiling.begin('rx.launch', self.bank.blocks)
             chunks = chz.process_device(wideband)
-            profiling.end(launch)
+            profiling.end(launch, chz.ddc_frames_run - frames)
             for chunk in chunks:
                 events.extend(self.bank.process(chunk))
         profiling.end(sp)
